@@ -4,7 +4,8 @@ The reference keeps bitsets as ``uint32``; the port keeps the same bits
 as ``int32`` (PyTorch has no bitwise operators for ``uint32`` on the
 CPU).  These functions move problem tables and whole lane states across
 as numpy arrays, bit for bit, so a parity test or the chip smoke can
-start both packages from identical state and compare them afterwards.
+start both packages from identical state and compare them afterwards;
+the service's stacked tables and lanes cross the same way.
 Nothing here imports the reference: its values arrive as numpy arrays
 (or anything ``np.asarray`` takes) in NamedTuples with the same fields.
 """
@@ -59,3 +60,27 @@ def lanes_from_numpy(lanes: Any, problem, device="cpu"):
     ``problem``, on ``device``."""
     from repro_torch.core.engine import init_lanes
     return to_torch(lanes, init_lanes(problem, 1), device)
+
+
+def stacked_tables(tables: Any, device="cpu"):
+    """Service tables with numpy leaves (``uint32`` adj / fullm, ``int32``
+    family: the reference's ``StackedTables`` or the port's host copy) as
+    the port's device tables."""
+    from repro_torch.service.batch_problem import StackedTables
+    return StackedTables(
+        adj=words(tables.adj, device), fullm=words(tables.fullm, device),
+        family=torch.from_numpy(np.asarray(tables.family, np.int32).copy()
+                                ).to(device))
+
+
+def load_service_state(svc, lanes: Any, tables: Any) -> None:
+    """Give the port's service ``svc`` a reference service's tables and
+    ``Lanes`` (numpy leaves).  The device tables are written in place, so
+    the service's round sees them."""
+    from repro_torch.service.batch_problem import StackedTables
+    svc.tables = StackedTables(
+        adj=np.array(tables.adj, np.uint32),
+        fullm=np.array(tables.fullm, np.uint32),
+        family=np.array(tables.family, np.int32))
+    svc._write_tables()
+    svc.lanes = lanes_from_numpy(lanes, svc.problem, svc.device)

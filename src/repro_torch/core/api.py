@@ -24,7 +24,7 @@ Bitsets are ``int32`` tensors holding the reference's ``uint32`` bits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -111,6 +111,10 @@ class BinaryProblem:
         per-lane shape.
       num_instances: K — instances multiplexed over the lane pool (1 for
         an ordinary problem; the solver service sets K > 1).
+      instance_root: optional (inst: int32[W]) -> states — the root of each
+        lane's own instance, batched, for K > 1 problems: CONVERTINDEX
+        replay of a stolen task must start from the root of the task's
+        instance.  ``None`` means ``root()`` serves every instance.
     """
 
     name: str
@@ -119,6 +123,7 @@ class BinaryProblem:
     evaluate_batch: Callable[[PyTree, torch.Tensor], NodeEval]
     payload_zero: Callable[[], PyTree]
     num_instances: int = 1
+    instance_root: Optional[Callable[[torch.Tensor], PyTree]] = None
 
     def apply(self, states: PyTree, bit: torch.Tensor) -> PyTree:
         """Descend every lane to its left (0) or right (1) child."""
@@ -135,8 +140,10 @@ class BinaryProblem:
 
 
 def root_of(problem: BinaryProblem, inst: torch.Tensor) -> PyTree:
-    """Root state of each lane's instance ``inst`` (int32[W]), batched.
-    Every problem of this slice has one instance, so this is ``root()``
-    for every lane."""
+    """Root state of each lane's instance ``inst`` (int32[W]), batched:
+    ``instance_root(inst)`` when the problem has one, else ``root()`` for
+    every lane."""
+    if problem.instance_root is not None:
+        return problem.instance_root(inst)
     return tree_map(lambda r: r.unsqueeze(0).expand(
         (inst.shape[0],) + r.shape), problem.root())

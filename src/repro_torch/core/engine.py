@@ -29,6 +29,11 @@ from repro_torch.core.api import (INF_VALUE, LEFT, RIGHT, UNVISITED,
 
 PyTree = Any
 
+#: ``Lanes.inst`` of a lane bound to no instance.  Such a lane never
+#: steals and never donates; the service driver retargets it.
+NO_INSTANCE = -1
+
+
 class Lanes(NamedTuple):
     """State of W lanes on one device; the reference's fields and dtypes.
 
@@ -61,9 +66,15 @@ def stack_len(problem: BinaryProblem) -> int:
     return problem.max_depth + 2
 
 
-def init_lanes(problem: BinaryProblem, num_lanes: int) -> Lanes:
-    """Allocate W lanes on the problem's device, all bound to instance 0;
-    lane 0 holds the root task N_{0,0} and the others start idle."""
+def init_lanes(problem: BinaryProblem, num_lanes: int,
+               seed_root: bool = True, bind_instance: bool = True) -> Lanes:
+    """Allocate W idle lanes on the problem's device; with ``seed_root``
+    lane 0 holds the root task N_{0,0} of instance 0.
+
+    ``bind_instance=False`` starts every lane unbound (``inst ==
+    NO_INSTANCE``): the service's pool, where a lane acquires an instance
+    at admission or steal time.
+    """
     w, il, sl = num_lanes, idx_len(problem), stack_len(problem)
     k = problem.num_instances
     root = problem.root()
@@ -72,21 +83,24 @@ def init_lanes(problem: BinaryProblem, num_lanes: int) -> Lanes:
     def alloc(leaf):
         buf = torch.zeros((w, sl) + tuple(leaf.shape), dtype=leaf.dtype,
                           device=dev)
-        buf[0, 0] = leaf
+        if seed_root:
+            buf[0, 0] = leaf
         return buf
 
     def zeros():
         return torch.zeros(w, dtype=torch.int32, device=dev)
 
     active = torch.zeros(w, dtype=torch.bool, device=dev)
-    active[0] = True
     t_s = zeros()
-    t_s[0] = 1
+    if seed_root:
+        active[0] = True
+        t_s[0] = 1
     return Lanes(
         idx=torch.full((w, il), UNVISITED, dtype=torch.int8, device=dev),
         depth=zeros(),
         base=zeros(),
-        inst=zeros(),
+        inst=(zeros() if bind_instance else torch.full(
+            (w,), NO_INSTANCE, dtype=torch.int32, device=dev)),
         active=active,
         stack=tree_map(alloc, root),
         best=torch.full((k,), INF_VALUE, dtype=torch.int32, device=dev),

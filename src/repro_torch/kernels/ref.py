@@ -37,12 +37,37 @@ def count_stats_ref(table: torch.Tensor, mask: torch.Tensor,
     the max (-1 when nothing is valid); ``count_sum = Σ max(count, 0)``;
     ``mask_count = popcount(mask)``.
     """
-    n = table.shape[0]
-    counts = popcount(table[None, :, :] & mask[:, None, :]).sum(
+    return _count_stats_rows(table[None, :, :], mask, valid)
+
+
+def stacked_count_stats_ref(tables: torch.Tensor, inst: torch.Tensor,
+                            mask: torch.Tensor,
+                            valid: torch.Tensor) -> torch.Tensor:
+    """``count_stats_ref`` of lane l against ``tables[inst[l]]``: tables
+    int32[K, n, w]; inst int32[L]; mask/valid int32[L, w] -> int32[L, 4].
+
+    A lane with ``inst < 0`` (the service's NO_INSTANCE) is parked: its
+    masks are zeroed, so it gives the no-valid row (-1, -1, 0, 0).
+    Ids at or above K lie outside the contract.
+    """
+    k = tables.shape[0]
+    idle = (inst < 0)[:, None]
+    mask = torch.where(idle, 0, mask)
+    valid = torch.where(idle, 0, valid)
+    rows = tables[inst.clamp(0, k - 1).long()]              # [L, n, w]
+    return _count_stats_rows(rows, mask, valid)
+
+
+def _count_stats_rows(rows: torch.Tensor, mask: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """The pass against ``rows`` [1 or L, n, w] (one table for every lane,
+    or one per lane)."""
+    n = rows.shape[1]
+    counts = popcount(rows & mask[:, None, :]).sum(
         dim=2, dtype=torch.int32)                          # [L, n]
     counts = torch.where(bit_set(valid, n), counts, -1)
     best = counts.amax(dim=1)
-    vid = torch.arange(n, dtype=torch.int32, device=table.device)
+    vid = torch.arange(n, dtype=torch.int32, device=rows.device)
     first = torch.where(counts == best[:, None], vid, n).amin(dim=1)
     arg = torch.where(best < 0, -1, first)
     total = counts.clamp(min=0).sum(dim=1, dtype=torch.int32)

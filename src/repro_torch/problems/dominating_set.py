@@ -47,10 +47,19 @@ def _closed_adj(graph: Graph) -> np.ndarray:
     return cadj
 
 
+def _pack_ds(graph: Graph, n: int):
+    """Service packing: pad into a stacked FAMILY_DS slot (closed
+    adjacency); the lazy import keeps problems and service acyclic."""
+    from repro_torch.service.batch_problem import FAMILY_DS, pack_instance
+    return pack_instance(graph, FAMILY_DS, n)
+
+
 @register_problem(
     "ds",
     parse=parse_graph_instance,
     oracle=lambda graph: make_dominating_set_py(graph),
+    pack=_pack_ds,
+    family_id=1,                       # batch_problem.FAMILY_DS
     doc="minimum dominating set via set-cover branching (paper §V)",
 )
 def make_dominating_set(graph: Graph, device: str = "cuda") -> BinaryProblem:

@@ -48,10 +48,19 @@ def vbit(v: torch.Tensor, w: int, bit_words: torch.Tensor) -> torch.Tensor:
                        bit_words[v % 32][:, None], 0)
 
 
+def _pack_vc(graph: Graph, n: int):
+    """Service packing: pad into a stacked FAMILY_VC slot; the lazy
+    import keeps problems and service acyclic."""
+    from repro_torch.service.batch_problem import FAMILY_VC, pack_instance
+    return pack_instance(graph, FAMILY_VC, n)
+
+
 @register_problem(
     "vc",
     parse=parse_graph_instance,
     oracle=lambda graph: make_vertex_cover_py(graph),
+    pack=_pack_vc,
+    family_id=0,                       # batch_problem.FAMILY_VC
     doc="minimum vertex cover by max-degree branching (paper §V)",
 )
 def make_vertex_cover(graph: Graph, device: str = "cuda") -> BinaryProblem:

@@ -10,8 +10,9 @@ A problem family is one registration::
 which binds the engine factory, the serial ``PyProblem`` oracle and the
 instance-spec parser under one name.  The reference's ``backends``
 capability list is gone: the device of the problem's tables chooses
-between the CUDA kernel and the plain version.  Service packing
-(``pack`` / ``family_id``) comes with the service slice.
+between the CUDA kernel and the plain version.  Registering ``pack`` and
+``family_id`` makes a family admissible to the multi-tenant
+``repro_torch.service.SolverService``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ __all__ = [
     "ProblemSpec",
     "UnknownProblemError",
     "get",
+    "instance_size",
     "names",
     "problem",
     "register_problem",
@@ -47,7 +49,12 @@ class ProblemSpec:
       builder: ``(instance, device) -> BinaryProblem``.
       oracle: ``instance -> PyProblem`` — the serial reference factory.
       parse: ``instance-spec str -> instance``.
-      size: ``instance -> int`` — instance size (defaults to ``.n``).
+      family_id: stacked-table family id (``repro_torch.service.
+        batch_problem``) when the family is servable, else None.
+      pack: ``(instance, n) -> (adj, fullm, family)`` service packing, or
+        None when the family cannot ride the stacked tables.
+      size: ``instance -> int`` — instance size, checked against the
+        service's ``max_n`` (defaults to ``.n``).
       doc: one-line description shown in CLI help.
     """
 
@@ -56,8 +63,15 @@ class ProblemSpec:
     builder: Callable[[Any, str], Any]
     oracle: Callable[[Any], Any]
     parse: Callable[[str], Any]
+    family_id: Optional[int] = None
+    pack: Optional[Callable[[Any, int], Any]] = None
     size: Callable[[Any], int] = lambda instance: int(instance.n)
     doc: str = ""
+
+    @property
+    def servable(self) -> bool:
+        """True when the family can be admitted to the solver service."""
+        return self.pack is not None and self.family_id is not None
 
     def build(self, instance: Any, device: str = "cuda") -> Any:
         """Build the engine ``BinaryProblem`` with its tables on
@@ -89,6 +103,8 @@ class ProblemHandle:
 
 def register_problem(name: str, *, parse: Callable[[str], Any],
                      oracle: Callable[[Any], Any],
+                     pack: Optional[Callable[[Any, int], Any]] = None,
+                     family_id: Optional[int] = None,
                      size: Optional[Callable[[Any], int]] = None,
                      doc: str = ""):
     """Decorator: register the decorated engine factory as family ``name``;
@@ -106,7 +122,7 @@ def register_problem(name: str, *, parse: Callable[[str], Any],
             kwargs["size"] = size
         _REGISTRY[name] = ProblemSpec(
             name=name, factory=factory, builder=builder, oracle=oracle,
-            parse=parse, doc=doc, **kwargs)
+            parse=parse, family_id=family_id, pack=pack, doc=doc, **kwargs)
         return factory
 
     return deco
@@ -133,6 +149,13 @@ def names() -> Tuple[str, ...]:
     """All registered family names, sorted."""
     _ensure_builtins()
     return tuple(sorted(_REGISTRY))
+
+
+def instance_size(name: str, instance: Any) -> int:
+    """Registered ``size()`` of ``instance`` under family ``name``: what
+    the service checks against ``max_n`` and the ``ShortestJobFirst``
+    policy orders by."""
+    return int(get(name).size(instance))
 
 
 def problem(name: str, instance: Any) -> ProblemHandle:

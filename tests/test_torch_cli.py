@@ -8,13 +8,14 @@ import pytest
 import torch
 
 from repro.core.serial import serial_rb as j_serial_rb
+from repro.launch import serve_solver as j_serve_solver
 from repro.launch import solve as j_solve
 from repro.problems import graphs as jgraphs
 from repro.problems.dominating_set import make_dominating_set_py as j_ds_py
 from repro.problems.vertex_cover import make_vertex_cover_py as j_vc_py
 from repro_torch import registry
 from repro_torch.core.serial import serial_rb
-from repro_torch.launch import solve
+from repro_torch.launch import serve_solver, solve
 from repro_torch.problems.dominating_set import make_dominating_set_py
 from repro_torch.problems.graphs import parse_graph_instance
 from repro_torch.problems.vertex_cover import make_vertex_cover_py
@@ -116,3 +117,61 @@ def test_registry_surface():
     assert prob.max_depth == 20 and prob.num_instances == 1
     assert np.array_equal(prob.root().alive.numpy(),
                           np.array([(1 << 20) - 1], np.int32))
+
+
+def service_lines(out: str):
+    """The per-request lines and the round count of the drained line
+    (wall time and rate aside)."""
+    lines = [l for l in out.splitlines() if l.startswith("  rid=")]
+    drained = [l for l in out.splitlines() if l.startswith("drained ")]
+    assert len(drained) == 1, out
+    return lines, drained[0].split(",")[0]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--instances", "vc:gnp:16:30:5,ds:gnp:14:30:7", "--lanes", "16",
+     "--slots", "2"],
+    ["--instances", "vc:gnp:20:30:5@prio=2,ds:gnp:16:30:7@deadline=3,"
+     "vc:reg:18:3:2@budget=40,ds:gnp:14:25:2", "--lanes", "12", "--slots",
+     "2", "--steps-per-round", "6", "--scheduler", "sjf"],
+])
+def test_serve_cli_prints_the_reference_lines(argv, monkeypatch, capsys):
+    want = service_lines(run_main(j_serve_solver, argv, monkeypatch, capsys))
+    got = service_lines(run_main(serve_solver, argv + ["--device", "cpu"],
+                                 monkeypatch, capsys))
+    assert got == want
+    assert len(got[0]) == argv[1].count(",") + 1
+    assert got[1].startswith("drained ") and " rounds" in got[1]
+
+
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--autoscale", "4"],
+                                  ["--trace", "t.jsonl"], ["--metrics"]])
+def test_serve_cli_refuses_what_is_not_ported(flag, monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ["serve_solver", "--device", "cpu"]
+                        + flag)
+    with pytest.raises(SystemExit) as e:
+        serve_solver.main()
+    assert e.value.code != 0
+    assert "not ported" in capsys.readouterr().err
+
+
+def test_solve_cli_checkpoint_and_resume(tmp_path, monkeypatch, capsys):
+    """--ckpt writes the reference's file; --resume at another lane count
+    prints the reference's result line, from either package's file."""
+    base = ["--problem", "vc", "--instance", "gnp:30:25:4",
+            "--steps-per-round", "8", "--ckpt-every", "2"]
+    j_ckpt, t_ckpt = str(tmp_path / "j.ckpt"), str(tmp_path / "t.ckpt")
+    first = base + ["--lanes", "8"]
+    want = result_line(run_main(j_solve, first + ["--ckpt", j_ckpt],
+                                monkeypatch, capsys))
+    got = result_line(run_main(solve, first + ["--ckpt", t_ckpt, "--device",
+                                               "cpu"], monkeypatch, capsys))
+    assert got == want
+    resume = base + ["--lanes", "5", "--resume"]
+    want = result_line(run_main(j_solve, resume + ["--ckpt", j_ckpt],
+                                monkeypatch, capsys))
+    for path in (j_ckpt, t_ckpt):
+        got = result_line(run_main(solve, resume + ["--ckpt", path,
+                                                    "--device", "cpu"],
+                                   monkeypatch, capsys))
+        assert got == want

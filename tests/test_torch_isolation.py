@@ -31,6 +31,11 @@ def _imported_roots(path: pathlib.Path):
 def test_port_sources_import_no_jax_or_reference():
     files = _port_files()
     assert len(files) > 15, files
+    for new in ("core/checkpoint.py", "service/__init__.py",
+                "service/batch_problem.py", "service/driver.py",
+                "service/scheduler.py", "service/ticket.py",
+                "launch/serve_solver.py"):
+        assert PORT / new in files, new
     bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
            for p in files for line, root in _imported_roots(p)
            if root in FORBIDDEN]
@@ -41,6 +46,9 @@ def test_port_sources_import_no_jax_or_reference():
     "repro_torch.solver",
     "repro_torch.launch.solve",
     "repro_torch.kernels.bitset_degree",
+    "repro_torch.core.checkpoint",
+    "repro_torch.service",
+    "repro_torch.launch.serve_solver",
 ])
 def test_port_imports_with_jax_blocked(module):
     """A fresh interpreter with ``jax`` and ``repro`` made unimportable
