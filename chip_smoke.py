@@ -53,6 +53,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -64,16 +65,25 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-KERNELS = ("count_stats", "stacked_count_stats")
+KERNELS = ("count_stats", "stacked_count_stats", "popcount_reduce",
+           "masked_row_reduce", "flash_attention", "ssd_scan")
 CSRC = "src/repro_torch/kernels/csrc/{}.cu"
 REPLACES = {"count_stats": "src/repro/kernels/bitset_ops.py:258",
-            "stacked_count_stats": "src/repro/kernels/bitset_ops.py:374"}
+            "stacked_count_stats": "src/repro/kernels/bitset_ops.py:374",
+            "popcount_reduce": "src/repro/kernels/bitset_ops.py:416",
+            "masked_row_reduce": "src/repro/kernels/bitset_ops.py:453",
+            "flash_attention": "src/repro/kernels/flash_attention.py:79",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:76"}
 
-#: H100 SXM: 132 SMs, HBM at 3.35 TB/s (NVIDIA data sheet).  __popc issues
-#: 16 results per clock per SM on compute capability 9.0 (CUDA C++
-#: Programming Guide, arithmetic instruction throughput table).
+#: H100 SXM: 132 SMs, HBM at 3.35 TB/s, 989 TFLOP/s dense bf16 on the
+#: tensor cores, 67 TFLOP/s float32 outside them (NVIDIA data sheet).
+#: __popc issues 16 results per clock per SM and 32-bit AND/OR 64 on
+#: compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+#: instruction throughput table).
 HBM_BYTES_PER_S = 3.35e12
 POPC_PER_CLOCK_PER_SM = 16
+LOGIC_PER_CLOCK_PER_SM = 64
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 #: Where the port runs, and the sizes of each phase.
 DEV = "cuda"
@@ -107,6 +117,57 @@ SVC_TWIN_CANCEL = (4, 9)
 #: A solve checkpointed on the card and resumed on the CPU (optimum from
 #: the serial oracle, as above).
 SOLVE_CKPT = ("vc", "gnp:60:15:7", 42)
+#: The kernel library's phases.  The bitset pair at cell60's shape and a
+#: sweep; attention at the full width of two of the repo's model
+#: configurations (src/repro/configs: qwen2_7b, gemma2_27b) and a sweep
+#: at small S; SSD at mamba2_130m's width and a sweep.
+REDUCE_NS = (1, 31, 32, 33, 100, 300, 1024)
+REDUCE_LANES = (1, 7, 1024, 4096)
+#: (name, B, S, H, G, hd, window, softcap, query_scale, dtype)
+ATTN_FULL = (("qwen2_7b", 1, 4096, 28, 4, 128, None, 0.0, None, "bf16"),
+             ("gemma2_27b", 1, 8192, 32, 16, 128, 4096, 50.0, 1 / 12,
+              "bf16"))
+ATTN_SWEEP = (("f32", 1, 256, 4, 4, 64, None, 0.0, None, "f32"),
+              ("f32 window", 2, 512, 4, 4, 64, 128, 0.0, None, "f32"),
+              ("f32 softcap", 1, 256, 4, 2, 64, None, 50.0, None, "f32"),
+              ("f32 r=7", 1, 256, 7, 1, 128, None, 0.0, None, "f32"),
+              ("f32 hd=80 ragged", 1, 300, 4, 2, 80, None, 0.0, None,
+               "f32"),
+              ("bf16 hd=80 ragged", 2, 333, 8, 2, 80, 100, 30.0, None,
+               "bf16"),
+              ("bf16 query_scale", 1, 200, 4, 1, 128, None, 50.0, 1 / 12,
+               "bf16"))
+#: (name, B, S, H, P, G, N, chunk, dtype, dt_shift): dt is
+#: softplus(N(0, 1) + dt_shift).  At -5 it lies in mamba2's range (1e-3
+#: to 1e-1, a few draws either side), so a chunk carries on a sizeable
+#: share of the state (held in SSD_DECAY_RANGE) and a wrong carry shows in
+#: y and the state.  At +1 (dt about 1.5) the decay inside a chunk passes
+#: exp(88): the case for the mask inside the exponent.
+SSD_FULL = ("mamba2_130m", 4, 4096, 24, 64, 1, 128, 128, "bf16", -5.0)
+SSD_SWEEP = (("f32", 1, 256, 4, 64, 1, 128, 64, "f32", -5.0),
+             ("f32 G=2", 1, 256, 4, 64, 2, 64, 128, "f32", -5.0),
+             ("f32 ragged", 2, 300, 4, 32, 2, 64, 64, "f32", -5.0),
+             ("f32 fast decay", 1, 256, 4, 64, 1, 128, 128, "f32", 1.0),
+             ("bf16 G=2 ragged", 2, 1000, 8, 64, 2, 128, 128, "bf16",
+              -5.0))
+SSD_DECAY_RANGE = (0.05, 0.95)
+#: q and k are drawn at this scale, so the scores scale * q.k spread by
+#: about 6 (held at MIN_SCORE_STD or more): the softmax is peaked, a
+#: window changes which key wins, and the softcap bends the largest
+#: scores.
+QK_SCALE = 2.5
+MIN_SCORE_STD = 3.0
+#: Tolerances: allclose with rtol = atol = TOL (the reference's own), and
+#: the normalised error ||out - want|| / ||want|| at most REL_TOL, which
+#: the rounding of a bf16 output passes and a missing softcap, window or
+#: state carry does not (the planted checks show that on every run).  The
+#: SSD state is f32 on both sides and is held at STATE_TOL in every case.
+TOL = {"bf16": 2e-2, "f32": 2e-5}
+REL_TOL = {"bf16": 5e-3, "f32": 2e-5}
+SSD_TOL = {"bf16": 5e-2, "f32": 1e-4}
+SSD_REL_TOL = {"bf16": 5e-3, "f32": 1e-4}
+STATE_TOL = 1e-4
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -387,55 +448,74 @@ def device_busy(fn):
 
 # -- phase 5 ----------------------------------------------------------------
 
-def time_kernel(kernel, plain, name, iters=200):
-    """(CUDA-event ms, profiler device ms or None, plain ms) per call of
-    ``kernel`` / ``plain``; ``name`` is the kernel's source in ``csrc``."""
-    from torch.profiler import ProfilerActivity, profile
+def rate_bound(ops, ops_per_s, bytes_moved):
+    """(bound in ms, what bounds it): the larger of the work over the
+    card's peak rate for it and the bytes over HBM's rate."""
+    ops_s = ops / ops_per_s
+    bytes_s = bytes_moved / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes")
 
-    def events_ms(fn, n_iter):
+
+def events_ms(fn, iters):
+    """CUDA-event milliseconds per call of ``fn`` over ``iters`` calls,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
         fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n_iter):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n_iter
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
+
+def profiled_ms(fn, name, iters, attempts=2):
+    """The profiler's device time per launch of the kernel of
+    ``csrc/<name>.cu`` over ``iters`` calls of ``fn``; None if no attempt
+    records the kernel (the caller then keeps the CUDA-event time)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            if is_kernel(name, evt.key) and evt.device_time_total:
+                return evt.device_time_total / evt.count / 1e3
+    return None
+
+
+def measure(name, kernel, plain, iters, plain_iters, bound_ms,
+                        bound_by, library=None, **shape):
+    """The kernel of ``csrc/<name>.cu`` timed on one input (profiler device
+    time, else CUDA events), with its plain version, the PyTorch call that
+    computes the same function where there is one, and the bound."""
     ev_ms = events_ms(kernel, iters)
-    plain_ms = events_ms(plain, 20)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            kernel()
-        torch.cuda.synchronize()
-    prof_ms = None
-    for evt in prof.key_averages():
-        if is_kernel(name, evt.key) and evt.device_time_total:
-            prof_ms = evt.device_time_total / evt.count / 1e3
-    return ev_ms, prof_ms, plain_ms
+    prof_ms = profiled_ms(kernel, name, max(1, min(iters, 20)))
+    plain_ms = events_ms(plain, plain_iters)
+    library_ms = events_ms(library, iters) if library is not None else None
+    return dict(shape, ms=prof_ms if prof_ms is not None else ev_ms,
+                ms_source="profiler" if prof_ms is not None else "events",
+                ms_events=ev_ms, ms_profiler=prof_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def bound(popcounts, bytes_moved, clock_hz, sms):
     """The least time for the work: popcount issue or HBM traffic."""
-    ops_s = popcounts / (POPC_PER_CLOCK_PER_SM * sms * clock_hz)
-    bytes_s = bytes_moved / HBM_BYTES_PER_S
-    return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes")
+    return rate_bound(popcounts, POPC_PER_CLOCK_PER_SM * sms * clock_hz,
+                      bytes_moved)
 
 
 def timed(name, kernel, plain, popcounts, bytes_moved, clock_hz, sms,
           iters=200, **shape):
     """Kernel time (profiler device time and CUDA events), plain time and
     the bound for one input of the kernel of ``csrc/<name>.cu``."""
-    ev_ms, prof_ms, plain_ms = time_kernel(kernel, plain, name, iters)
-    bound_ms, bound_by = bound(popcounts, bytes_moved, clock_hz, sms)
-    return dict(shape, ms=prof_ms if prof_ms is not None else ev_ms,
-                ms_source="profiler" if prof_ms is not None else "events",
-                ms_events=ev_ms, ms_profiler=prof_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
-                popcounts=popcounts, bytes=bytes_moved)
+    return measure(name, kernel, plain, iters, 20,
+                   *bound(popcounts, bytes_moved, clock_hz, sms),
+                   popcounts=popcounts, bytes=bytes_moved, **shape)
 
 
 def kernel_times(table, mask, valid, clock_hz, sms):
@@ -888,19 +968,430 @@ def phase_stacked_timing(report, live):
     return service, large
 
 
+# -- phases 11 to 13: the kernel library ------------------------------------
+
+def reduce_inputs(rng, n, lanes):
+    """A random table and selects with bits >= n set in the last word,
+    one empty select and one all-ones select."""
+    from repro_torch.convert import words
+    from repro_torch.problems.graphs import num_words
+    w = num_words(n)
+    table = rand_words(rng, (n, w))
+    select = rand_words(rng, (lanes, w))
+    select[0] = 0
+    if lanes > 1:
+        select[1] = 0xFFFFFFFF
+    return words(table, DEV), words(select, DEV)
+
+
+def phase_bitset_library(report):
+    """``ops.popcount_reduce`` and ``ops.masked_row_reduce`` at cell60's
+    shape (the library's call, counted), then parity and timing."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.ref import bit_set
+    from repro_torch.problems.graphs import full_mask
+    rng = np.random.RandomState(11)
+    n, lanes = 300, CELL60_LANES
+    table, select = reduce_inputs(rng, n, lanes)
+    select[2:] &= torch.from_numpy(full_mask(n).view(np.int32)).to(DEV)
+
+    _build.reset_launches()
+    outs = {"popcount_reduce": ops.popcount_reduce(select),
+            "or": ops.masked_row_reduce(table, select, op="or"),
+            "and": ops.masked_row_reduce(table, select, op="and")}
+    torch.cuda.synchronize()
+    launches = {k: _build.LAUNCHES[k] for k in ("popcount_reduce",
+                                                 "masked_row_reduce")}
+    check(launches == {"popcount_reduce": 1, "masked_row_reduce": 2},
+          f"bitset library: launches {launches}")
+    report["launches"].update(launches)
+    compare(outs["popcount_reduce"], ref.popcount_reduce_ref(select),
+            "popcount_reduce cell60", report["parity"]["popcount_reduce"])
+    for op in ("or", "and"):
+        compare(outs[op], ref.masked_row_reduce_ref(table, select, op=op),
+                f"masked_row_reduce {op} cell60",
+                report["parity"]["masked_row_reduce"])
+
+    cases = 0
+    for n_ in REDUCE_NS:
+        for lanes_ in REDUCE_LANES:
+            t, sel = reduce_inputs(rng, n_, lanes_)
+            compare(ops.popcount_reduce(sel), ref.popcount_reduce_ref(sel),
+                    f"popcount_reduce n={n_} L={lanes_}",
+                    report["parity"]["popcount_reduce"])
+            for op in ("or", "and"):
+                compare(ops.masked_row_reduce(t, sel, op=op),
+                        ref.masked_row_reduce_ref(t, sel, op=op),
+                        f"masked_row_reduce {op} n={n_} L={lanes_}",
+                        report["parity"]["masked_row_reduce"])
+            cases += 1
+    print(f"phase 11: popcount_reduce and masked_row_reduce (or, and) "
+          f"through repro_torch.kernels.ops at n=300, w=10, L={lanes}: "
+          f"launches {launches}; bitwise equal to plain there and on "
+          f"{cases} cases (n in {REDUCE_NS} x L in {REDUCE_LANES}, bits "
+          f">= n, empty and all-ones selects)", flush=True)
+
+    clock_hz, sms = report["clock_max_sm_hz"], report["sms"]
+    w = table.shape[1]
+    popcounts = lanes * w
+    pc_bound = rate_bound(popcounts, POPC_PER_CLOCK_PER_SM * sms * clock_hz,
+                          4 * (lanes * w + lanes))
+    pc = measure(
+        "popcount_reduce", lambda: ops.popcount_reduce(select),
+        lambda: ref.popcount_reduce_ref(select), 200, 20, *pc_bound,
+        n=n, w=w, L=lanes, popcounts=popcounts)
+    selected = int(bit_set(select, n).sum())
+    mr_bound = rate_bound(selected * w,
+                          LOGIC_PER_CLOCK_PER_SM * sms * clock_hz,
+                          4 * (n * w + 2 * lanes * w))
+    mr = measure(
+        "masked_row_reduce",
+        lambda: ops.masked_row_reduce(table, select, op="or"),
+        lambda: ref.masked_row_reduce_ref(table, select, op="or"), 200, 20,
+        *mr_bound, n=n, w=w, L=lanes, op="or", selected_pairs=selected,
+        word_ops=selected * w)
+    for name, t in (("popcount_reduce", pc), ("masked_row_reduce", mr)):
+        print(f"phase 11: {name} n={n} w={w} L={lanes}: kernel "
+              f"{t['ms'] * 1e3:.2f} us ({t['ms_source']}; events "
+              f"{t['ms_events'] * 1e3:.2f} us), plain "
+              f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.3f}"
+              f" us ({t['bound_by']})", flush=True)
+    report["library_timing"] = dict(popcount_reduce=pc, masked_row_reduce=mr)
+    return pc, mr
+
+
+def randn(gen, shape, dtype, scale=0.5):
+    """Normal values made on the card from a seeded generator, in f32 and
+    then rounded to ``dtype``."""
+    x = torch.randn(shape, generator=gen, device=DEV, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def close(got, want, tol, rel_tol):
+    """(max abs error, normalised error ||got - want|| / ||want||, ok):
+    ok when allclose with rtol = atol = tol holds and the normalised
+    error is at most rel_tol."""
+    diff = (got.float() - want.float()).abs()
+    rel = float(diff.norm() / want.float().norm().clamp_min(1e-30))
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    return float(diff.max()), rel, ok and rel <= rel_tol
+
+
+def note_error(parity, err, rel):
+    parity["compared"] += 1
+    parity["max_abs_err"] = max(parity["max_abs_err"], err)
+    parity["max_rel_err"] = max(parity.get("max_rel_err", 0.0), rel)
+
+
+def attention_pairs(s, window):
+    """Visible (query, key) pairs of causal attention over s positions."""
+    q = torch.arange(s, dtype=torch.float64)
+    vis = q + 1 if window is None else torch.clamp(q + 1, max=window)
+    return int(vis.sum())
+
+
+def attention_inputs(gen, case):
+    name, b, s, h, g, hd, window, softcap, qs, dt = case
+    return [randn(gen, (b, s, n_, hd), DTYPES[dt], scale)
+            for n_, scale in ((h, QK_SCALE), (g, QK_SCALE), (g, 0.5))]
+
+
+def score_std(q, k, query_scale):
+    """Spread of the scores scale * q.k of head 0 over (at most) the first
+    512 positions."""
+    scale = query_scale if query_scale is not None else q.shape[-1] ** -0.5
+    qh, kh = q[0, :512, 0].float(), k[0, :512, 0].float()
+    return float((scale * qh @ kh.T).std())
+
+
+def attention_parity(parity, case, q, k, v, out):
+    """Hold ``out`` against the plain version, and show that the check
+    would catch a kernel that skipped the softcap or the window: the
+    plain version without either must fail it.  Returns (max abs error,
+    normalised error, {fault: its normalised error})."""
+    from repro_torch.kernels import ref
+    name, b, s, h, g, hd, window, softcap, qs, dt = case
+    spread = score_std(q, k, qs)
+    check(spread >= MIN_SCORE_STD,
+          f"flash_attention {name}: scores spread {spread:.3g} < "
+          f"{MIN_SCORE_STD}, the softmax is too flat to test the kernel")
+    check(bool(torch.isfinite(out.float()).all()),
+          f"flash_attention {name}: non-finite output")
+
+    def plain(window=window, softcap=softcap):
+        return ref.flash_attention_ref(q, k, v, window=window,
+                                       softcap=softcap, query_scale=qs,
+                                       block_q=128, block_k=128)
+    want = plain()
+    err, rel, ok = close(out, want, TOL[dt], REL_TOL[dt])
+    note_error(parity, err, rel)
+    check(ok, f"flash_attention {name}: max abs err {err} (tol {TOL[dt]}), "
+              f"normalised err {rel} (tol {REL_TOL[dt]})")
+    faults = {}
+    if softcap:
+        faults["no softcap"] = plain(softcap=0.0)
+    if window is not None:
+        faults["no window"] = plain(window=None)
+    planted = {}
+    for fault, bad in faults.items():
+        f_err, f_rel, f_ok = close(bad, want, TOL[dt], REL_TOL[dt])
+        check(not f_ok, f"flash_attention {name}: the plain version with "
+                        f"{fault} passes the check (max abs err {f_err}, "
+                        f"normalised {f_rel}): the inputs cannot tell")
+        planted[fault] = f_rel
+    return err, rel, planted
+
+
+def phase_attention(report):
+    """``ops.flash_attention`` at qwen2-7b's and gemma2-27b's widths (the
+    library's call, counted), held against the plain version, a sweep at
+    small S, and the timing."""
+    from repro_torch.kernels import _build, ops, ref
+    parity = report["parity"]["flash_attention"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(12)
+    inputs = [attention_inputs(gen, case) for case in ATTN_FULL]
+    _build.reset_launches()
+    outs = [ops.flash_attention(q, k, v, window=case[6], softcap=case[7],
+                                query_scale=case[8])
+            for case, (q, k, v) in zip(ATTN_FULL, inputs)]
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["flash_attention"]
+    check(launches == len(ATTN_FULL), f"flash_attention launches "
+                                      f"{launches}")
+    report["launches"]["flash_attention"] = launches
+
+    results = []
+    for case, (q, k, v), out in zip(ATTN_FULL, inputs, outs):
+        name, b, s, h, g, hd, window, softcap, qs, dt = case
+        err, rel, planted = attention_parity(parity, case, q, k, v, out)
+        flops = 4 * hd * h * b * attention_pairs(s, window)
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        bound_ms, bound_by = rate_bound(flops, PEAK_FLOPS[DTYPES[dt]],
+                                        nbytes)
+        library = None
+        if window is None and softcap == 0.0 and qs is None:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_err, lib_rel, _ = close(library().transpose(1, 2), out,
+                                        TOL[dt], REL_TOL[dt])
+        t = measure(
+            "flash_attention",
+            lambda: ops.flash_attention(q, k, v, window=window,
+                                        softcap=softcap, query_scale=qs),
+            lambda: ref.flash_attention_ref(
+                q, k, v, window=window, softcap=softcap, query_scale=qs,
+                block_q=128, block_k=128),
+            5, 1, bound_ms, bound_by, library=library,
+            config=name, B=b, S=s, H=h, G=g, hd=hd, window=window,
+            softcap=softcap, query_scale=qs, dtype=dt, flops=flops,
+            bytes=nbytes, max_abs_err=err, rel_err=rel, tolerance=TOL[dt],
+            rel_tolerance=REL_TOL[dt], planted_rel_err=planted)
+        if library is not None:
+            t["library"] = "torch.nn.functional.scaled_dot_product_attention"
+            t["library_vs_kernel_max_abs_err"] = lib_err
+            t["library_vs_kernel_rel_err"] = lib_rel
+        results.append(t)
+        lib = (f", SDPA {t['library_ms']:.3f} ms" if library is not None
+               else ", SDPA: none (window/softcap/query_scale)")
+        caught = "".join(f"; plain with {f} caught (normalised err "
+                         f"{e:.3g})" for f, e in planted.items())
+        print(f"phase 12: flash_attention {name} (B={b} S={s} H={h} G={g} "
+              f"hd={hd} window={window} softcap={softcap} {dt}): max abs "
+              f"err {err:.3g} (tol {TOL[dt]}), normalised {rel:.3g} (tol "
+              f"{REL_TOL[dt]}){caught}; kernel {t['ms']:.3f} ms "
+              f"({t['ms_source']}; events {t['ms_events']:.3f} ms), plain "
+              f"{t['plain_ms']:.1f} ms{lib}, bound {t['bound_ms']:.3f} ms "
+              f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
+              f"MB)", flush=True)
+    del inputs, outs
+
+    for case in ATTN_SWEEP:
+        q, k, v = attention_inputs(gen, case)
+        out = ops.flash_attention(q, k, v, window=case[6], softcap=case[7],
+                                  query_scale=case[8])
+        attention_parity(parity, case, q, k, v, out)
+    print(f"phase 12: flash_attention sweep of {len(ATTN_SWEEP)} cases "
+          f"(f32, windows, softcaps, r=7, hd=80, S not a multiple of the "
+          f"tile, query_scale) within tolerance; the plain version without "
+          f"its softcap or window failed the check in every such case",
+          flush=True)
+    report["attention"] = results
+    return results
+
+
+def ssd_inputs(gen, case):
+    """x, dt, a, B, C and d of an SSD case.  B and C are drawn at the
+    reference's own 0.3: at larger values the f32 plain version itself
+    strays past 1e-4 from the exact recurrence in the fast-decay case."""
+    name, b, s, h, p, g, n, chunk, dt, dt_shift = case
+    dtype = DTYPES[dt]
+    x = randn(gen, (b, s, h, p), dtype)
+    dtv = torch.nn.functional.softplus(
+        randn(gen, (b, s, h), torch.float32, 1.0) + dt_shift)
+    a = -torch.exp(randn(gen, (h,), torch.float32, 0.3))
+    bm = randn(gen, (b, s, g, n), dtype, 0.3)
+    cm = randn(gen, (b, s, g, n), dtype, 0.3)
+    d = 1.0 + randn(gen, (h,), torch.float32)          # a gain per head
+    return x, dtv, a, bm, cm, d
+
+
+def chunk_decays(dtv, a, chunk):
+    """exp(sum of dt * a over each whole chunk), per (batch, chunk, head),
+    in f64: the share of the state that a chunk carries on."""
+    b, s, h = dtv.shape
+    whole = s // chunk * chunk
+    da = (dtv[:, :whole].double() * a.double()).reshape(b, -1, chunk, h)
+    return torch.exp(da.sum(2))
+
+
+def ssd_carry_dropped(args, chunk):
+    """The plain version with the state carried from chunk to chunk
+    dropped: each chunk scanned alone from a zero state."""
+    from repro_torch.kernels import ref
+    x, dtv, a, bm, cm, d = args
+    ys, state = [], None
+    for c0 in range(0, x.shape[1], chunk):
+        cut = slice(c0, c0 + chunk)
+        y, state = ref.ssd_scan_ref(x[:, cut], dtv[:, cut], a, bm[:, cut],
+                                    cm[:, cut], d, chunk=chunk)
+        ys.append(y)
+    return torch.cat(ys, 1), state
+
+
+def ssd_parity(parity, case, args, y, state, planted=False):
+    """Hold (y, state) against the plain version: y at the reference's
+    tolerance and REL_TOL, the f32 state at STATE_TOL.  Checks the decay
+    the inputs give.  With ``planted``, also shows that the check would
+    catch a kernel that dropped the state carried between chunks.
+    Returns ((y err, y normalised err, state err), {fault check: its
+    normalised error})."""
+    from repro_torch.kernels import ref
+    name, b, s, h, p, g, n, chunk, dt, dt_shift = case
+    decays = chunk_decays(args[1], args[2], chunk)
+    if dt_shift < 0:
+        lo, hi = SSD_DECAY_RANGE
+        mean = float(decays.mean())
+        check(lo <= mean <= hi, f"ssd_scan {name}: a chunk carries on "
+                                f"{mean:.3g} of the state, outside {lo} to "
+                                f"{hi}: the carry cannot be tested")
+    else:
+        check(float(decays.min()) < math.exp(-88),
+              f"ssd_scan {name}: no chunk decays past exp(-88)")
+    check(bool(torch.isfinite(y.float()).all()
+               and torch.isfinite(state).all()),
+          f"ssd_scan {name}: non-finite output")
+    y_want, st_want = ref.ssd_scan_ref(*args, chunk=chunk)
+
+    def held(y_got, st_got):
+        y_err, y_rel, y_ok = close(y_got, y_want, SSD_TOL[dt],
+                                   SSD_REL_TOL[dt])
+        st_err, st_rel, st_ok = close(st_got, st_want, STATE_TOL,
+                                      STATE_TOL)
+        return (y_err, y_rel, y_ok), (st_err, st_rel, st_ok)
+    (y_err, y_rel, y_ok), (st_err, st_rel, st_ok) = held(y, state)
+    note_error(parity, y_err, y_rel)
+    note_error(parity, st_err, st_rel)
+    check(y_ok, f"ssd_scan {name} y: max abs err {y_err} (tol "
+                f"{SSD_TOL[dt]}), normalised {y_rel} (tol "
+                f"{SSD_REL_TOL[dt]})")
+    check(st_ok, f"ssd_scan {name} state: max abs err {st_err}, normalised "
+                 f"{st_rel} (tol {STATE_TOL})")
+    caught = {}
+    if planted:
+        bad_y, bad_st = held(*ssd_carry_dropped(args, chunk))
+        check(not bad_y[2] and not bad_st[2],
+              f"ssd_scan {name}: the plain version without the state carry "
+              f"passes the check (y {bad_y}, state {bad_st})")
+        caught = {"no carry, y": bad_y[1], "no carry, state": bad_st[1]}
+    return (y_err, y_rel, st_err), caught
+
+
+def ssd_cost(b, s, h, p, n, chunk, args):
+    """(flops, bytes) of the scan: per chunk and head, the lower triangle
+    of C B^T and of its product with x, C S and the state update; each
+    input read once, y and the state written once."""
+    tri = chunk * (chunk + 1) // 2
+    chunks = -(-s // chunk)
+    flops = b * h * chunks * (2 * tri * n + 2 * tri * p + 4 * chunk * n * p)
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes += args[0].numel() * args[0].element_size() + 4 * b * h * n * p
+    return flops, nbytes
+
+
+def phase_ssd(report):
+    """``ops.ssd_scan`` at mamba2-130m's width (the library's call,
+    counted), held against the plain version, a sweep, and the timing."""
+    from repro_torch.kernels import _build, ops, ref
+    parity = report["parity"]["ssd_scan"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+    name, b, s, h, p, g, n, chunk, dt, _ = SSD_FULL
+    args = ssd_inputs(gen, SSD_FULL)
+    _build.reset_launches()
+    y, state = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["ssd_scan"]
+    check(launches == 1, f"ssd_scan launches {launches}")
+    report["launches"]["ssd_scan"] = launches
+    (y_err, y_rel, st_err), caught = ssd_parity(parity, SSD_FULL, args, y,
+                                                state, planted=True)
+    decay = float(chunk_decays(args[1], args[2], chunk).mean())
+    flops, nbytes = ssd_cost(b, s, h, p, n, chunk, args)
+    bound_ms, bound_by = rate_bound(flops, PEAK_FLOPS[DTYPES[dt]], nbytes)
+    t = measure(
+        "ssd_scan", lambda: ops.ssd_scan(*args, chunk=chunk),
+        lambda: ref.ssd_scan_ref(*args, chunk=chunk), 10, 1, bound_ms,
+        bound_by, config=name, B=b, S=s, H=h, P=p, G=g, N=n, chunk=chunk,
+        dtype=dt, flops=flops, bytes=nbytes, y_max_abs_err=y_err,
+        y_rel_err=y_rel, state_max_abs_err=st_err, tolerance=SSD_TOL[dt],
+        rel_tolerance=SSD_REL_TOL[dt], state_tolerance=STATE_TOL,
+        chunk_decay_mean=decay, planted_rel_err=caught)
+    print(f"phase 13: ssd_scan {name} (B={b} S={s} H={h} P={p} G={g} N={n} "
+          f"chunk={chunk} {dt}, a chunk carries on {decay:.3g} of the "
+          f"state): y max abs err {y_err:.3g} (tol {SSD_TOL[dt]}), "
+          f"normalised {y_rel:.3g} (tol {SSD_REL_TOL[dt]}); state max abs "
+          f"err {st_err:.3g} (tol {STATE_TOL}); plain without the carry "
+          f"caught (normalised err y {caught['no carry, y']:.3g}, state "
+          f"{caught['no carry, state']:.3g}); kernel {t['ms']:.3f} ms "
+          f"({t['ms_source']}; events {t['ms_events']:.3f} ms), plain "
+          f"{t['plain_ms']:.1f} ms, bound {bound_ms * 1e3:.1f} us "
+          f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+          f"{b * h} blocks on {report['sms']} SMs", flush=True)
+    del args, y, state
+
+    for case in SSD_SWEEP:
+        args = ssd_inputs(gen, case)
+        y, state = ops.ssd_scan(*args, chunk=case[7])
+        ssd_parity(parity, case, args, y, state, planted=case[9] < 0)
+    print(f"phase 13: ssd_scan sweep of {len(SSD_SWEEP)} cases (f32, G > 1, "
+          f"S not a multiple of the chunk, a decay past exp(88)) within "
+          f"tolerance for y and the state; the plain version without the "
+          f"carry failed the check in every case with mamba2's dt",
+          flush=True)
+    report["ssd"] = t
+    return t
+
+
 # -- driver -----------------------------------------------------------------
 
-def kernel_entry(name, report, headline, shapes):
+def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
     parity = report["parity"][name]
+    library_ms = headline.get("library_ms")
     return {"name": name, "route": "cuda", "source": CSRC.format(name),
             "replaces": REPLACES[name], "launches": report["launches"][name],
             "max_abs_err": parity["max_abs_err"], "ms": headline["ms"],
             "plain_ms": headline["plain_ms"],
             "bound_ms": headline["bound_ms"],
-            "bound_by": headline["bound_by"], "library_ms": None,
-            "library": "none: no single PyTorch call computes this function",
+            "bound_by": headline["bound_by"], "library_ms": library_ms,
+            "library": headline.get("library") if library_ms is not None
+            else "none: no single PyTorch call computes this function",
             "mismatches": parity["mismatches"],
-            "compared": parity["compared"], "tolerance": "bitwise (0)",
+            "max_rel_err": parity.get("max_rel_err"),
+            "compared": parity["compared"], "tolerance": tolerance,
             "shapes": shapes}
 
 
@@ -912,6 +1403,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
 
+    # The plain versions' float32 products in full float32 (no TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     card = smi("name,power.limit")
@@ -940,10 +1434,22 @@ def main() -> int:
     phase_service_twin(report)
     phase_checkpoints(report, svc)
     service, large = phase_stacked_timing(report, service_inputs)
+    popcount, row_reduce = phase_bitset_library(report)
+    attention = phase_attention(report)
+    ssd = phase_ssd(report)
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small]),
         kernel_entry("stacked_count_stats", report, service,
-                     [service, large])]}
+                     [service, large]),
+        kernel_entry("popcount_reduce", report, popcount, [popcount]),
+        kernel_entry("masked_row_reduce", report, row_reduce, [row_reduce]),
+        kernel_entry("flash_attention", report, attention[0], attention,
+                     "allclose rtol = atol = 2e-2 (bf16), 2e-5 (f32); "
+                     "normalised error <= 5e-3 (bf16), 2e-5 (f32)"),
+        kernel_entry("ssd_scan", report, ssd, [ssd],
+                     "y: allclose rtol = atol = 5e-2 (bf16), 1e-4 (f32), "
+                     "normalised error <= 5e-3 (bf16), 1e-4 (f32); "
+                     "state (f32): allclose and normalised error 1e-4")]}
     report["seconds"] = time.perf_counter() - t_start
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -2,10 +2,12 @@
 
 The reference keeps bitsets as ``uint32``; the port keeps the same bits
 as ``int32`` (PyTorch has no bitwise operators for ``uint32`` on the
-CPU).  These functions move problem tables and whole lane states across
-as numpy arrays, bit for bit, so a parity test or the chip smoke can
-start both packages from identical state and compare them afterwards;
-the service's stacked tables and lanes cross the same way.
+CPU).  These functions move problem tables, whole lane states and kernel
+operands across as numpy arrays, bit for bit, so a parity test or the
+chip smoke can start both packages from identical state and compare them
+afterwards; the service's stacked tables and lanes cross the same way.
+A bfloat16 array of the reference (numpy's ``ml_dtypes.bfloat16``)
+crosses through a 16-bit view, never through a float round trip.
 Nothing here imports the reference: its values arrive as numpy arrays
 (or anything ``np.asarray`` takes) in NamedTuples with the same fields.
 """
@@ -20,8 +22,26 @@ import torch
 
 def words(table: np.ndarray, device="cpu") -> torch.Tensor:
     """A ``uint32`` numpy table as an ``int32`` tensor with the same bits."""
-    arr = np.ascontiguousarray(table, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(arr.copy()).to(device)
+    return tensor(np.asarray(table, dtype=np.uint32), device)
+
+
+def tensor(arr: Any, device="cpu",
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A reference array as a tensor with the same bits: ``uint32`` as
+    ``int32``, ``bfloat16`` as ``torch.bfloat16`` (through a 16-bit view),
+    anything else as its own type.  ``dtype`` then casts a float array
+    (``torch.bfloat16`` rounds to nearest even, as ``jnp``'s ``astype``)."""
+    arr = np.asarray(arr)
+    if arr.dtype == np.uint32:
+        out = torch.from_numpy(np.array(arr.view(np.int32), copy=True))
+    elif arr.dtype.name == "bfloat16":
+        out = torch.from_numpy(np.array(arr.view(np.int16), copy=True)).view(
+            torch.bfloat16)
+    else:
+        out = torch.from_numpy(np.array(arr, copy=True))
+    if dtype is not None:
+        out = out.to(dtype)
+    return out.to(device)
 
 
 def _is_namedtuple(x: Any) -> bool:
@@ -35,10 +55,7 @@ def to_torch(tree: Any, like: Any, device="cpu") -> Any:
     if _is_namedtuple(like):
         return type(like)(*(to_torch(getattr(tree, f), getattr(like, f),
                                      device) for f in like._fields))
-    arr = np.asarray(tree)
-    if arr.dtype == np.uint32:
-        arr = arr.view(np.int32)
-    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+    return tensor(tree, device)
 
 
 def to_numpy(tree: Any, like: Optional[Any] = None) -> Any:

@@ -5,6 +5,10 @@ compiled with ``nvcc`` for ``sm_90a`` into ``kernels/build/`` (listed in
 ``.gitignore``), under a file name keyed by a hash of the source and the
 flags, and loaded with ``ctypes``.  Nothing here runs at import time:
 the CPU-only tests import every module of the port.
+
+Every wrapper launches its kernel through ``launch``, which counts the
+launch in ``LAUNCHES``: a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -16,7 +20,13 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import Dict
+from typing import Callable, Dict, Sequence
+
+import torch
+
+#: The port's CUDA kernels, one ``csrc/<name>.cu`` each.
+KERNELS = ("count_stats", "stacked_count_stats", "popcount_reduce",
+           "masked_row_reduce", "flash_attention", "ssd_scan")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
@@ -24,6 +34,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_ENTRY: Dict[str, Callable] = {}
+
+#: Launches of each kernel since the last ``reset_launches()``.
+LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -79,3 +98,35 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _LOADED[name] = lib
     return lib
+
+
+def _entry(name: str, argtypes: Sequence) -> Callable:
+    """``<name>_launch`` of ``csrc/<name>.cu``, built and bound at first
+    use: ``argtypes`` (``c_void_p`` for each device pointer, ``c_int``,
+    ``c_float``), then the stream; it returns the CUDA error code."""
+    fn = _ENTRY.get(name)
+    if fn is None:
+        fn = getattr(load(name), f"{name}_launch")
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ENTRY[name] = fn
+    return fn
+
+
+class LaunchError(RuntimeError):
+    """A kernel's launcher returned CUDA error ``code``."""
+
+    def __init__(self, name: str, code: int):
+        super().__init__(f"{name} launch failed: CUDA error {code}")
+        self.code = code
+
+
+def launch(name: str, argtypes: Sequence, args: Sequence, device) -> None:
+    """Launch the kernel of ``csrc/<name>.cu`` on the current stream of
+    ``device`` (a CUDA device), raise ``LaunchError`` if it returns a CUDA
+    error, and count the launch."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _entry(name, argtypes)(*args, stream)
+    if err != 0:
+        raise LaunchError(name, err)
+    LAUNCHES[name] += 1

@@ -1,20 +1,20 @@
-"""The masked-popcount passes and the dominating-set binding (counterpart
-of ``repro.kernels.bitset_ops``; DESIGN.md §5.2-5.3 state the contract).
+"""The bitset kernel library (counterpart of ``repro.kernels.bitset_ops``;
+DESIGN.md §5.2-5.3 state the contract): the masked-popcount passes, the
+dominating-set binding, row popcounts and masked row reductions.
 
-``count_stats`` (one table) and ``stacked_count_stats`` (K stacked
-tables, one per service slot) dispatch by the device of their tensors: on
-a CUDA tensor they launch the hand-written Hopper kernels
-``csrc/count_stats.cu`` and ``csrc/stacked_count_stats.cu`` (or raise), on
-a CPU tensor they run the plain versions in ``ref.py``.  There is no
-fallback from one to the other.  The reference's ``tile`` /
-``stages`` / ``interpret`` knobs have no counterpart: one CUDA kernel
-replaces both Pallas layouts.
+``count_stats`` (one table), ``stacked_count_stats`` (K stacked tables,
+one per service slot), ``popcount_reduce`` and ``masked_row_reduce``
+dispatch by the device of their tensors: on a CUDA tensor they launch the
+hand-written Hopper kernels ``csrc/<name>.cu`` (or raise), on a CPU
+tensor they run the plain versions in ``ref.py``.  There is no fallback
+from one to the other.  The reference's ``tile`` / ``stages`` /
+``interpret`` knobs have no counterpart: one CUDA kernel replaces each
+Pallas layout.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict
 
 import torch
 
@@ -26,29 +26,12 @@ BEST, ARG, SUM, MASK_COUNT = 0, 1, 2, 3
 #: Largest row width (in 32-bit words) the CUDA kernel takes: n <= 1024.
 MAX_WORDS = 32
 
-#: Launches of each CUDA kernel since the last ``reset_launches()``.
-LAUNCHES: Dict[str, int] = {"count_stats": 0, "stacked_count_stats": 0}
+#: Launches of each CUDA kernel since the last ``reset_launches()`` (one
+#: registry for all the port's kernels, kept in ``_build``).
+LAUNCHES = _build.LAUNCHES
+reset_launches = _build.reset_launches
 
-_ENTRY: Dict[str, Callable] = {}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _entry(name: str, pointers: int, ints: int) -> Callable:
-    """``<name>_launch`` of ``csrc/<name>.cu``, built and bound at first
-    use: ``pointers`` device pointers, then ``ints`` ints, then the
-    stream; returns the CUDA error code."""
-    fn = _ENTRY.get(name)
-    if fn is None:
-        fn = getattr(_build.load(name), f"{name}_launch")
-        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _ENTRY[name] = fn
-    return fn
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
 def _check(table: torch.Tensor, mask: torch.Tensor,
@@ -91,13 +74,9 @@ def count_stats(table: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"count_stats kernel takes w <= {MAX_WORDS} words "
                          f"(n <= {32 * MAX_WORDS}), got w={w}")
     out = torch.empty((lanes, 4), dtype=torch.int32, device=table.device)
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    err = _entry("count_stats", 4, 3)(table.data_ptr(), mask.data_ptr(),
-                                      valid.data_ptr(), out.data_ptr(), n, w,
-                                      lanes, stream)
-    if err != 0:
-        raise RuntimeError(f"count_stats launch failed: CUDA error {err}")
-    LAUNCHES["count_stats"] += 1
+    _build.launch("count_stats", [_PTR] * 4 + [_INT] * 3,
+                  [table.data_ptr(), mask.data_ptr(), valid.data_ptr(),
+                   out.data_ptr(), n, w, lanes], table.device)
     return out
 
 
@@ -148,14 +127,69 @@ def stacked_count_stats(tables: torch.Tensor, inst: torch.Tensor,
                          f"{MAX_WORDS} words (n <= {32 * MAX_WORDS}), got "
                          f"w={w}")
     out = torch.empty((lanes, 4), dtype=torch.int32, device=tables.device)
-    stream = torch.cuda.current_stream(tables.device).cuda_stream
-    err = _entry("stacked_count_stats", 5, 4)(
-        tables.data_ptr(), inst.data_ptr(), mask.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), k, n, w, lanes, stream)
-    if err != 0:
-        raise RuntimeError(f"stacked_count_stats launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["stacked_count_stats"] += 1
+    _build.launch("stacked_count_stats", [_PTR] * 5 + [_INT] * 4,
+                  [tables.data_ptr(), inst.data_ptr(), mask.data_ptr(),
+                   valid.data_ptr(), out.data_ptr(), k, n, w, lanes],
+                  tables.device)
+    return out
+
+
+def _check_words(name: str, **tensors: torch.Tensor) -> torch.device:
+    """Every operand int32 (uint32 bits), 2-D, contiguous, on one device."""
+    device = None
+    for arg, t in tensors.items():
+        if t.dim() != 2:
+            raise ValueError(f"{name}: {arg} must be [rows, w], got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {arg} must be int32 (uint32 bits), "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if device is not None and t.device != device:
+            raise ValueError(f"{name}: operands on {device} and {t.device}")
+        device = t.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} has no kernel for {device}")
+    return device
+
+
+def popcount_reduce(rows: torch.Tensor) -> torch.Tensor:
+    """int32[L, w] -> int32[L]: the popcount of each packed row (the size
+    of each set)."""
+    device = _check_words("popcount_reduce", rows=rows)
+    if device.type == "cpu":
+        return ref.popcount_reduce_ref(rows)
+    lanes, w = rows.shape
+    out = torch.empty((lanes,), dtype=torch.int32, device=device)
+    if lanes:
+        _build.launch("popcount_reduce", [_PTR] * 2 + [_INT] * 2,
+                      [rows.data_ptr(), out.data_ptr(), lanes, w], device)
+    return out
+
+
+def masked_row_reduce(table: torch.Tensor, select: torch.Tensor, *,
+                      op: str = "or") -> torch.Tensor:
+    """Bitwise OR (or AND) of the rows of ``table`` (int32[n, w]) whose
+    bit is set in ``select`` (int32[L, w]) -> int32[L, w].  Bits at or
+    above n select nothing; an empty selection gives the identity (0 for
+    OR, -1 = 0xFFFFFFFF for AND).  The OR form with an adjacency table is
+    N(S) of the selected set S; the AND form intersects constraint rows."""
+    if op not in ("or", "and"):
+        raise ValueError(f"unknown reduce op {op!r}")
+    device = _check_words("masked_row_reduce", table=table, select=select)
+    n, w = table.shape
+    lanes = select.shape[0]
+    if select.shape[1] != w or n < 1 or n > 32 * w:
+        raise ValueError(f"masked_row_reduce: table {tuple(table.shape)} "
+                         f"does not match select {tuple(select.shape)}")
+    if device.type == "cpu":
+        return ref.masked_row_reduce_ref(table, select, op=op)
+    out = torch.empty((lanes, w), dtype=torch.int32, device=device)
+    if lanes:
+        _build.launch("masked_row_reduce", [_PTR] * 3 + [_INT] * 4,
+                      [table.data_ptr(), select.data_ptr(), out.data_ptr(),
+                       n, w, lanes, int(op == "and")], device)
     return out
 
 

@@ -1,0 +1,82 @@
+"""Causal flash attention (counterpart of ``repro.kernels.flash_attention``).
+
+``flash_attention`` dispatches by the device of its tensors: on CUDA
+tensors it launches the hand-written Hopper kernel
+``csrc/flash_attention.cu`` (or raises), on CPU tensors it runs the plain
+version, ``models.attention.blocked_attention``.  There is no fallback
+from one to the other.  The kernel takes any S (a ragged last tile is
+masked) and the head dims of ``HEAD_DIMS``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+#: Head dims the CUDA kernel is built for: those of the repo's model
+#: configurations (src/repro/configs).
+HEAD_DIMS = (64, 80, 128)
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_float] * 2)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention wants q [B, S, H, hd] and k, v "
+                         f"[B, S, G, hd], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    g = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (b, s, hd) or g < 1 \
+            or h % g:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
+                         f"match k/v {tuple(k.shape)} (H must be a multiple "
+                         f"of G)")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
+                        f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: Optional[int] = None, softcap: float = 0.0,
+                    query_scale: Optional[float] = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """q: [B, S, H, hd]; k, v: [B, S, G, hd] -> [B, S, H, hd] in q's dtype:
+    causal attention, head h reading KV head h // (H / G), with an
+    optional sliding ``window`` and tanh ``softcap``; ``query_scale``
+    replaces 1/sqrt(hd).  ``block_q`` / ``block_k`` are the plain
+    version's blocks: the CUDA kernel has its own tiles and ignores them."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, window=window,
+                                       softcap=softcap,
+                                       query_scale=query_scale,
+                                       block_q=block_q, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention has no kernel for {q.device}")
+    b, s, h, hd = q.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, "
+                         f"got {hd}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention kernel takes window >= 1 or "
+                         f"None, got {window}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    scale = query_scale if query_scale is not None else 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    _build.launch("flash_attention", _ARGTYPES,
+                  [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   b, s, h, k.shape[2], hd, window or 0,
+                   int(q.dtype == torch.bfloat16), float(softcap),
+                   float(scale)], q.device)
+    return out

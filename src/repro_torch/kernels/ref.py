@@ -1,15 +1,29 @@
 """Plain PyTorch versions of the port's kernels (counterpart of
 ``repro.kernels.ref``).
 
+flash_attention -> repro_torch.models.attention.blocked_attention
+ssd_scan        -> repro_torch.models.ssm.ssd_chunked
+bitset kernels  -> count_stats / stacked_count_stats / popcount_reduce /
+                   masked_row_reduce / domination_stats / degree_stats below
+
 The CPU runs these; ``chip_smoke.py`` holds each CUDA kernel against them
-on the card.  Bitsets are ``int32`` tensors holding ``uint32`` bits.  The
-popcount is SWAR in int64: PyTorch has no popcount, and int32 SWAR would
-overflow in the final multiply and shift arithmetically.
+on the card.  Bitsets are ``int32`` tensors holding ``uint32`` bits (the
+AND identity 0xFFFFFFFF is -1).  The popcount is SWAR in int64: PyTorch
+has no popcount, and int32 SWAR would overflow in the final multiply and
+shift arithmetically.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.attention import \
+    blocked_attention as flash_attention_ref  # noqa: F401
+from repro_torch.models.ssm import ssd_chunked
+
+
+def ssd_scan_ref(x, dt, a, b, c, d, chunk: int = 64):
+    return ssd_chunked(x, dt, a, b, c, d, chunk=chunk)
 
 
 def popcount(words: torch.Tensor) -> torch.Tensor:
@@ -73,6 +87,31 @@ def _count_stats_rows(rows: torch.Tensor, mask: torch.Tensor,
     total = counts.clamp(min=0).sum(dim=1, dtype=torch.int32)
     mcount = popcount(mask).sum(dim=1, dtype=torch.int32)
     return torch.stack([best, arg, total, mcount], dim=1).to(torch.int32)
+
+
+def popcount_reduce_ref(rows: torch.Tensor) -> torch.Tensor:
+    """int32[L, w] -> int32[L]: the popcount of each packed row."""
+    return popcount(rows).sum(dim=-1, dtype=torch.int32)
+
+
+def masked_row_reduce_ref(table: torch.Tensor, select: torch.Tensor, *,
+                          op: str = "or") -> torch.Tensor:
+    """table int32[n, w]; select int32[L, w] -> int32[L, w]: OR (AND) of
+    the rows whose bit is set in ``select`` (bits >= n select nothing;
+    the identity, 0 or -1, for an empty selection)."""
+    if op not in ("or", "and"):
+        raise ValueError(f"unknown reduce op {op!r}")
+    n = table.shape[0]
+    ident = 0 if op == "or" else -1
+    rows = torch.where(bit_set(select, n)[:, :, None], table[None],
+                       ident)                              # [L, n, w]
+    while rows.shape[1] > 1:                # log2 tree over the rows
+        if rows.shape[1] % 2:
+            rows = torch.cat([rows, torch.full_like(rows[:, :1], ident)], 1)
+        half = rows.shape[1] // 2
+        lo, hi = rows[:, :half], rows[:, half:]
+        rows = lo | hi if op == "or" else lo & hi
+    return rows[:, 0].to(torch.int32)
 
 
 def degree_stats_ref(adj: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:

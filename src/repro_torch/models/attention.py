@@ -1,0 +1,108 @@
+"""Blocked causal attention (GQA / SWA / softcap) in plain PyTorch
+(counterpart of ``repro.models.attention``'s ``blocked_attention``).
+
+A blocked online softmax with f32 running (max, sum, acc), KV block by KV
+block.  It is the plain version of the ``flash_attention`` kernel
+(``kernels/csrc/flash_attention.cu``) and keeps the reference's
+arithmetic: f32 scores from the inputs' own values, masked scores set to
+``NEG_INF``, ``p`` cast to ``v``'s dtype before the PV product (the bf16
+quirk of the flash convention), ``l`` clamped at 1e-30.  Unlike the
+reference's nested scans, the query blocks run side by side: each query
+row sees the same KV blocks in the same order, so its arithmetic is the
+same.  RoPE, decode and the quantized cache wait for the LM slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _block_scores(qb: torch.Tensor, kb: torch.Tensor, scale: float,
+                  softcap: float) -> torch.Tensor:
+    """qb [B, nq, Q, G, R, hd], kb [B, K, G, hd] -> s [B, nq, G, R, Q, K]
+    in f32.  bf16 operands are widened exactly (a bf16 product fits in
+    f32), so this is the reference's f32-accumulated product."""
+    s = torch.einsum("bnqgrd,bkgd->bngrqk", qb.float(), kb.float()) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor,
+          window: Optional[int]) -> torch.Tensor:
+    """bool[..., Q, K]: key ``kpos`` visible from query ``qpos``."""
+    ok = kpos[None, :] <= qpos[..., None]
+    if window is not None:
+        ok &= (qpos[..., None] - kpos[None, :]) < window
+    return ok
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      window: Optional[int] = None,
+                      softcap: float = 0.0,
+                      query_scale: Optional[float] = None,
+                      q_offset: int = 0,
+                      block_q: int = 256,
+                      block_k: int = 256,
+                      skip_masked_blocks: bool = False) -> torch.Tensor:
+    """Causal attention.  q: [B, S, H, hd]; k, v: [B, S, G, hd]; returns
+    [B, S, H, hd] in q's dtype.  H = G * R (GQA): head h reads KV head
+    h // R.  S is padded to the lcm of the blocks; padded keys sit beyond
+    every real query, so the causal mask removes them."""
+    b, s_orig, h, hd = q.shape
+    g = k.shape[2]
+    r = h // g
+    scale = query_scale if query_scale is not None else 1.0 / math.sqrt(hd)
+
+    blk = block_q * block_k // math.gcd(block_q, block_k)   # lcm
+    pad = (-s_orig) % blk
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+    s = s_orig + pad
+    nq, nk = s // block_q, s // block_k
+
+    qb = q.reshape(b, nq, block_q, g, r, hd).float()    # exact widening
+    kb = k.reshape(b, nk, block_k, g, hd)
+    vb = v.reshape(b, nk, block_k, g, hd)
+    q_pos = q_offset + torch.arange(s, device=q.device).reshape(nq, block_q)
+
+    m = torch.full((b, nq, g, r, block_q), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((b, nq, g, r, block_q, hd), dtype=torch.float32,
+                    device=q.device)
+    for kj in range(nk):
+        k_pos = kj * block_k + torch.arange(block_k, device=q.device)
+        sblk = _block_scores(qb, kb[:, kj], scale, softcap)
+        ok = _mask(q_pos, k_pos, window)                    # [nq, Q, K]
+        sblk = torch.where(ok[None, :, None, None], sblk, NEG_INF)
+        m_new = torch.maximum(m, sblk.amax(dim=-1))
+        p = torch.exp(sblk - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_new = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bngrqk,bkgd->bngrqd", p.to(v.dtype).float(),
+                          vb[:, kj].float())
+        o_new = o * alpha[..., None] + pv
+        if skip_masked_blocks:
+            # A block is dead for a query block when its first key is
+            # after the block's last query, or (window) its last key is
+            # out of reach of the block's first query.
+            first_q, last_q = q_pos[:, 0], q_pos[:, -1]
+            live = kj * block_k <= last_q
+            if window is not None:
+                live &= (kj * block_k + block_k - 1) > first_q - window
+            keep = live[None, :, None, None, None]
+            m_new = torch.where(keep, m_new, m)
+            l_new = torch.where(keep, l_new, l)
+            o_new = torch.where(keep[..., None], o_new, o)
+        m, l, o = m_new, l_new, o_new
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    # [B, nq, G, R, Q, hd] -> [B, nq, Q, G, R, hd] -> [B, S, H, hd]
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, s, h, hd)
+    return out[:, :s_orig].to(q.dtype)

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA kernels against their plain
-versions on CUDA tensors, and a solve and a service drain on the card
-against the same on the CPU.  This file imports neither ``jax`` nor
+versions on CUDA tensors (the four bitset kernels bitwise, attention and
+the SSD scan within the reference's tolerances), and a solve and a
+service drain on the card against the same on the CPU.  This file imports neither ``jax`` nor
 ``repro``, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch import registry
 from repro_torch.convert import to_numpy, words
-from repro_torch.kernels import bitset_degree, bitset_ops, ref
+from repro_torch.kernels import _build, bitset_degree, bitset_ops, ops, ref
 from repro_torch.problems.graphs import (circulant_graph, full_mask,
                                          num_words, parse_graph_instance)
 from repro_torch.service import SolveRequest
@@ -140,3 +141,155 @@ def test_service_on_the_card_equals_the_cpu():
         for x, y in zip(*((v,) if isinstance(v, np.ndarray) else tuple(v)
                           for v in (a, b))):
             assert np.array_equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 300])
+def test_bitset_reduce_kernels_equal_plain_versions(n):
+    need_card()
+    rng = np.random.RandomState(n)
+    w = num_words(n)
+    for lanes in (1, 7, 1024):
+        table = words(random_words(rng, (n, w)), "cuda")
+        sel = random_words(rng, (lanes, w))     # bits >= n set too
+        sel[0] = 0                              # empty: the identity
+        if lanes > 1:
+            sel[1] = 0xFFFFFFFF                 # all ones
+        sel = words(sel, "cuda")
+        before = dict(_build.LAUNCHES)
+        got = {op: ops.masked_row_reduce(table, sel, op=op)
+               for op in ("or", "and")}
+        count = ops.popcount_reduce(sel)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["masked_row_reduce"] == \
+            before["masked_row_reduce"] + 2
+        assert _build.LAUNCHES["popcount_reduce"] == \
+            before["popcount_reduce"] + 1
+        for op, out in got.items():
+            assert torch.equal(out, ref.masked_row_reduce_ref(table, sel,
+                                                              op=op))
+        assert torch.equal(count, ref.popcount_reduce_ref(sel))
+    with pytest.raises(ValueError):
+        ops.masked_row_reduce(table, sel, op="xor")
+
+
+def _randn(rng, shape, dtype, scale=0.5):
+    x = torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32))
+    return x.to(dtype).cuda()
+
+
+def _assert_close(got, want, tol, rel_tol):
+    """allclose with rtol = atol = tol, and ||got - want|| / ||want|| at
+    most rel_tol."""
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert float((got - want).norm() / want.norm()) <= rel_tol
+
+
+#: q and k at 2.5: the scores spread by about 6, so the softmax is peaked
+#: and the softcap bends the largest scores.
+QK_SCALE = 2.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,g,hd,window,softcap,qs,dtype", [
+    (1, 256, 4, 2, 64, None, 0.0, None, torch.float32),
+    (1, 200, 7, 1, 80, None, 0.0, None, torch.float32),   # r=7, hd=80
+    (1, 256, 4, 2, 64, 100, 50.0, None, torch.float32),
+    (2, 130, 4, 4, 128, 50, 30.0, None, torch.bfloat16),
+    (1, 300, 4, 2, 128, None, 50.0, 1 / 12, torch.bfloat16),
+])
+def test_flash_attention_kernel_equals_plain_version(b, s, h, g, hd, window,
+                                                     softcap, qs, dtype):
+    need_card()
+    rng = np.random.RandomState(s + h)
+    q, k, v = (_randn(rng, (b, s, n_, hd), dtype, scale)
+               for n_, scale in ((h, QK_SCALE), (g, QK_SCALE), (g, 0.5)))
+    before = _build.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, window=window, softcap=softcap,
+                              query_scale=qs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+
+    def plain(window=window, softcap=softcap):
+        return ref.flash_attention_ref(q, k, v, window=window,
+                                       softcap=softcap, query_scale=qs,
+                                       block_q=128, block_k=128)
+    want = plain()
+    tol, rel_tol = ((2e-2, 5e-3) if dtype == torch.bfloat16
+                    else (2e-5, 2e-5))
+    _assert_close(got, want, tol, rel_tol)
+    # The inputs can tell a kernel that skipped the softcap or the window.
+    faults = ([plain(softcap=0.0)] if softcap else []) + \
+        ([plain(window=None)] if window is not None else [])
+    for bad in faults:
+        with pytest.raises(AssertionError):
+            _assert_close(bad, want, tol, rel_tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_rejects_a_head_dim_it_lacks():
+    need_card()
+    q = torch.zeros((1, 8, 2, 48), device="cuda")
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q)
+
+
+def _ssd_inputs(rng, b, s, h, p, g, n, dtype, dt_shift):
+    """dt = softplus(N(0, 1) + dt_shift): at -5 in mamba2's range, so a
+    chunk carries on a sizeable share of the state; a gain per head."""
+    x = _randn(rng, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(
+        _randn(rng, (b, s, h), torch.float32, 1.0) + dt_shift)
+    a = -torch.exp(_randn(rng, (h,), torch.float32, 0.3))
+    bm, cm = (_randn(rng, (b, s, g, n), dtype, 0.3) for _ in range(2))
+    d = 1.0 + _randn(rng, (h,), torch.float32)
+    return x, dt, a, bm, cm, d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype,dt_shift", [
+    (1, 256, 4, 64, 1, 128, 128, torch.bfloat16, -5.0),
+    (2, 300, 4, 32, 2, 64, 64, torch.float32, -5.0),     # G=2, ragged S
+    (1, 100, 2, 64, 1, 16, 43, torch.float32, -5.0),     # chunk 43, ragged
+    (1, 256, 4, 64, 1, 128, 128, torch.float32, 1.0),    # decay > exp(88)
+])
+def test_ssd_scan_kernel_equals_plain_version(b, s, h, p, g, n, chunk,
+                                              dtype, dt_shift):
+    need_card()
+    rng = np.random.RandomState(s + n)
+    args = _ssd_inputs(rng, b, s, h, p, g, n, dtype, dt_shift)
+    before = _build.LAUNCHES["ssd_scan"]
+    y, state = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_scan"] == before + 1
+    y_want, st_want = ref.ssd_scan_ref(*args, chunk=chunk)
+    tol, rel_tol = ((5e-2, 5e-3) if dtype == torch.bfloat16
+                    else (1e-4, 1e-4))
+    _assert_close(y, y_want, tol, rel_tol)
+    _assert_close(state, st_want, 1e-4, 1e-4)     # f32 on both sides
+    if dt_shift < 0:
+        # The inputs can tell a kernel that dropped the carried state:
+        # the plain version run one chunk at a time fails.
+        x, dt, a, bm, cm, d = args
+        last = (s - 1) // chunk * chunk
+        cut = slice(last, s)
+        _, st_alone = ref.ssd_scan_ref(x[:, cut], dt[:, cut], a, bm[:, cut],
+                                       cm[:, cut], d, chunk=chunk)
+        with pytest.raises(AssertionError):
+            _assert_close(st_alone, st_want, 1e-4, 1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_refuses_a_chunk_that_does_not_fit():
+    need_card()
+    rng = np.random.RandomState(0)
+    big = _ssd_inputs(rng, 1, 8, 1, 64, 1, 1024, torch.float32, -5.0)
+    with pytest.raises(ValueError):          # a 1024 x 64 f32 state alone
+        ops.ssd_scan(*big, chunk=128)        # is 256 KB
+    # The refusal leaves no error behind for the next launch.
+    args = _ssd_inputs(rng, 1, 64, 2, 32, 1, 16, torch.float32, -5.0)
+    y, state = ops.ssd_scan(*args, chunk=32)
+    y_want, st_want = ref.ssd_scan_ref(*args, chunk=32)
+    _assert_close(y, y_want, 1e-4, 1e-4)
+    _assert_close(state, st_want, 1e-4, 1e-4)

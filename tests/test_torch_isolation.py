@@ -49,6 +49,7 @@ def test_port_sources_import_no_jax_or_reference():
     "repro_torch.core.checkpoint",
     "repro_torch.service",
     "repro_torch.launch.serve_solver",
+    "repro_torch.kernels.ops",
 ])
 def test_port_imports_with_jax_blocked(module):
     """A fresh interpreter with ``jax`` and ``repro`` made unimportable
