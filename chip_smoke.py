@@ -5,9 +5,12 @@
 
 Phases (any failure raises and exits non-zero):
 
-  1. build ``count_stats`` and ``stacked_count_stats`` from
-     ``kernels/csrc`` with nvcc, both at once; print the card and its
-     power limit;
+  1. build the six kernels from ``kernels/csrc`` with nvcc, one process
+     per source, all at once; print the card and its power limit, and the
+     SASS instruction counts (``cuobjdump -sass``) that show each
+     redesigned kernel's hardware path: ``HGMMA`` and ``UTMALDG`` for
+     ``flash_attention`` (bf16 route), ``BMMA`` and ``POPC`` for
+     ``count_stats``;
   2. hold ``count_stats`` bitwise against its plain PyTorch version on
      CUDA tensors (n in {1, 31, 33, 100, 300, 1000} x L in {1, 7, 1024,
      8192}, all-invalid lanes, all-tied circulant degrees) and the
@@ -24,7 +27,9 @@ Phases (any failure raises and exits non-zero):
      balance; one round under the profiler for the card's busy share;
   5. time ``count_stats`` (profiler device time, and CUDA events) and its
      plain version at (n=300, w=10, L=4096) and (n=100, w=4, L=1024),
-     and compute the bound from the inputs;
+     and compute the bounds from the inputs: bytes (the one it is held
+     to: its binary products run on the tensor cores) and, beside it,
+     the popcount issue of the same work on the CUDA cores;
   6. hold ``stacked_count_stats`` bitwise against its plain version (K in
      {1, 4, 16} x n in {1, 31, 33, 100, 300, 1000} x L in {1, 7, 1024,
      8192}; mixed ids with parked lanes, all lanes parked, all-tied
@@ -42,8 +47,15 @@ Phases (any failure raises and exits non-zero):
      lanes and drains to the same optima; a solve saved on the card
      resumes on the CPU to the same optimum;
  10. time ``stacked_count_stats`` and its plain version at the service's
-     shape (K=4, n=100, L=1024) and at (K=16, n=300, L=4096), and print
-     the ``kernels`` line for both kernels.
+     shape (K=4, n=100, L=1024) and at (K=16, n=300, L=4096);
+ 11. ``popcount_reduce`` and ``masked_row_reduce`` at cell60's shape and a
+     sweep, bitwise;
+ 12. ``flash_attention`` at qwen2-7b's and gemma2-27b's prefill widths
+     (bf16: the wgmma kernel) and a sweep of both routes, held against the
+     plain version with planted faults; timed over 50 launches with SDPA
+     in the same call;
+ 13. ``ssd_scan`` at mamba2-130m's width and a sweep; then the
+     ``kernels`` line for all six kernels.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -82,6 +94,9 @@ REPLACES = {"count_stats": "src/repro/kernels/bitset_ops.py:258",
 #: instruction throughput table).
 HBM_BYTES_PER_S = 3.35e12
 POPC_PER_CLOCK_PER_SM = 16
+#: The SFU (exp2, reciprocal, tanh) issues 16 results per clock per SM on
+#: compute capability 9.0 (the same table).
+SFU_PER_CLOCK_PER_SM = 16
 LOGIC_PER_CLOCK_PER_SM = 64
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -136,7 +151,18 @@ ATTN_SWEEP = (("f32", 1, 256, 4, 4, 64, None, 0.0, None, "f32"),
               ("bf16 hd=80 ragged", 2, 333, 8, 2, 80, 100, 30.0, None,
                "bf16"),
               ("bf16 query_scale", 1, 200, 4, 1, 128, None, 50.0, 1 / 12,
+               "bf16"),
+              ("bf16 hd=64 S<tile r=8", 1, 100, 8, 1, 64, None, 0.0, None,
+               "bf16"),
+              ("bf16 S=tile r=1", 2, 128, 4, 4, 128, None, 0.0, None,
+               "bf16"),
+              ("bf16 r=7 window<tile", 1, 640, 14, 2, 128, 50, 0.0, None,
+               "bf16"),
+              ("bf16 window>S", 1, 300, 8, 1, 80, 1000, 30.0, None,
                "bf16"))
+#: flash_attention's timing: launches after one warm-up (the plain version
+#: runs once: it takes tens of milliseconds).
+ATTN_ITERS = 50
 #: (name, B, S, H, P, G, N, chunk, dtype, dt_shift): dt is
 #: softplus(N(0, 1) + dt_shift).  At -5 it lies in mamba2's range (1e-3
 #: to 1e-1, a few draws either side), so a chunk carries on a sizeable
@@ -519,19 +545,25 @@ def timed(name, kernel, plain, popcounts, bytes_moved, clock_hz, sms,
 
 
 def kernel_times(table, mask, valid, clock_hz, sms):
-    """``count_stats`` timed on one input; its bound counts the popcounts
-    of every valid vertex, or the bytes of reading each input once and
-    writing the output once."""
+    """``count_stats`` timed on one input.  Its binary products run on
+    the tensor cores, so the bound it is held to is the bytes of reading
+    each input once and writing the output once; beside it stands the
+    popcount-issue bound of the same work on the CUDA cores (the popcounts
+    of every valid vertex), which bounded its first, CUDA-core design."""
     from repro_torch.kernels import bitset_ops, ref
     from repro_torch.kernels.ref import bit_set
     n, w = table.shape
     lanes = mask.shape[0]
     n_valid = int(bit_set(valid, n).sum())
-    return timed("count_stats",
-                 lambda: bitset_ops.count_stats(table, mask, valid),
-                 lambda: ref.count_stats_ref(table, mask, valid),
-                 n_valid * w, 4 * (n * w + 2 * lanes * w + 4 * lanes),
-                 clock_hz, sms, n=n, w=w, L=lanes, valid_pairs=n_valid)
+    popcounts = n_valid * w
+    nbytes = 4 * (n * w + 2 * lanes * w + 4 * lanes)
+    popc_ms, _ = bound(popcounts, 0, clock_hz, sms)
+    return measure("count_stats",
+                   lambda: bitset_ops.count_stats(table, mask, valid),
+                   lambda: ref.count_stats_ref(table, mask, valid), 200, 20,
+                   *rate_bound(0, 1.0, nbytes), popcounts=popcounts,
+                   bytes=nbytes, popc_bound_ms=popc_ms, n=n, w=w, L=lanes,
+                   valid_pairs=n_valid)
 
 
 def live_alive(lanes):
@@ -575,7 +607,9 @@ def phase_timing(cell60_lanes, report):
               f"({t['ms_source']}; events {t['ms_events'] * 1e3:.2f} us), "
               f"plain {t['plain_ms'] * 1e3:.1f} us, bound "
               f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
-              f"{t['popcounts']} popcounts, {t['bytes']} bytes)", flush=True)
+              f"{t['bytes']} bytes); popcount issue of the same work "
+              f"{t['popc_bound_ms'] * 1e3:.3f} us ({t['popcounts']} "
+              f"popcounts)", flush=True)
     report["timing"] = [full, live, small]
     report["clock_max_sm_hz"] = clock_hz
     report["sms"] = sms
@@ -1130,7 +1164,7 @@ def attention_parity(parity, case, q, k, v, out):
     faults = {}
     if softcap:
         faults["no softcap"] = plain(softcap=0.0)
-    if window is not None:
+    if window is not None and window < s:
         faults["no window"] = plain(window=None)
     planted = {}
     for fault, bad in faults.items():
@@ -1165,10 +1199,17 @@ def phase_attention(report):
     for case, (q, k, v), out in zip(ATTN_FULL, inputs, outs):
         name, b, s, h, g, hd, window, softcap, qs, dt = case
         err, rel, planted = attention_parity(parity, case, q, k, v, out)
-        flops = 4 * hd * h * b * attention_pairs(s, window)
+        pairs = h * b * attention_pairs(s, window)
+        flops = 4 * hd * pairs
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
         bound_ms, bound_by = rate_bound(flops, PEAK_FLOPS[DTYPES[dt]],
                                         nbytes)
+        # An exp per pair on the SFU, and a tanh with a softcap.
+        sfu_ops = pairs * (2 if softcap else 1)
+        sfu_ms = sfu_ops / (SFU_PER_CLOCK_PER_SM * report["sms"]
+                            * report["clock_max_sm_hz"]) * 1e3
+        if sfu_ms > bound_ms:
+            bound_ms, bound_by = sfu_ms, "operations"
         library = None
         if window is None and softcap == 0.0 and qs is None:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1185,9 +1226,10 @@ def phase_attention(report):
             lambda: ref.flash_attention_ref(
                 q, k, v, window=window, softcap=softcap, query_scale=qs,
                 block_q=128, block_k=128),
-            5, 1, bound_ms, bound_by, library=library,
+            ATTN_ITERS, 1, bound_ms, bound_by, library=library,
             config=name, B=b, S=s, H=h, G=g, hd=hd, window=window,
             softcap=softcap, query_scale=qs, dtype=dt, flops=flops,
+            sfu_ops=sfu_ops, sfu_bound_ms=sfu_ms,
             bytes=nbytes, max_abs_err=err, rel_err=rel, tolerance=TOL[dt],
             rel_tolerance=REL_TOL[dt], planted_rel_err=planted)
         if library is not None:
@@ -1215,10 +1257,11 @@ def phase_attention(report):
                                   query_scale=case[8])
         attention_parity(parity, case, q, k, v, out)
     print(f"phase 12: flash_attention sweep of {len(ATTN_SWEEP)} cases "
-          f"(f32, windows, softcaps, r=7, hd=80, S not a multiple of the "
-          f"tile, query_scale) within tolerance; the plain version without "
-          f"its softcap or window failed the check in every such case",
-          flush=True)
+          f"(f32 and bf16; hd 64, 80, 128; r 1, 2, 7, 8; S below, at and "
+          f"not a multiple of the tile; windows below a tile and beyond S; "
+          f"softcaps; query_scale) within tolerance; the plain version "
+          f"without its softcap or window (where the window hides a key) "
+          f"failed the check in every such case", flush=True)
     report["attention"] = results
     return results
 
@@ -1395,6 +1438,37 @@ def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
             "shapes": shapes}
 
 
+#: The SASS instructions that show each redesigned kernel's hardware path:
+#: the tensor cores fed by TMA (flash_attention's bf16 route) and the
+#: tensor cores' binary product beside the popcounts of the mask counts
+#: (count_stats).  Each must appear at least once.
+SASS_PATHS = {"flash_attention": ("HGMMA", "UTMALDG"),
+              "count_stats": ("BMMA", "POPC")}
+#: An instruction whose opcode is {} (after its address and an optional
+#: predicate), not a modifier of another opcode (BMMA's ".POPC").
+SASS_OP = r"^\s*/\*[0-9a-f]{{4,}}\*/\s+(?:@!?U?P[T0-9]+\s+)?{}\b"
+
+
+def sass_counts(libs):
+    """{kernel: {instruction: count}} from ``cuobjdump -sass`` of the
+    built libraries of ``SASS_PATHS``; fails if an instruction is
+    missing."""
+    from repro_torch.kernels import _build
+    tool = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    counts = {}
+    for name, ops in SASS_PATHS.items():
+        text = subprocess.run([str(tool), "-sass", str(libs[name])],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        counts[name] = {op: len(re.findall(SASS_OP.format(op), text,
+                                           re.MULTILINE)) for op in ops}
+        for op, n in counts[name].items():
+            check(n > 0, f"{name}: no {op} in its SASS")
+        print(f"phase 1: SASS of {name}: " + ", ".join(
+            f"{op} {c}" for op, c in counts[name].items()), flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: no card",
@@ -1419,8 +1493,9 @@ def main() -> int:
         print(f"phase 1: built {lib.name} ({build_s:.1f} s for all); nvcc: "
               f"{pathlib.Path(str(lib) + '.log').read_text().strip()}",
               flush=True)
+    sass = sass_counts(dict(zip(KERNELS, libs)))
 
-    report = dict(device=kind, card=card, build_s=build_s,
+    report = dict(device=kind, card=card, build_s=build_s, sass=sass,
                   parity={k: dict(compared=0, mismatches=0, max_abs_err=0)
                           for k in KERNELS},
                   launches=dict.fromkeys(KERNELS, 0), solves=[])

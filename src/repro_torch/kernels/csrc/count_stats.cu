@@ -9,95 +9,192 @@
 //   (max count, smallest v reaching it, sum of counts, popcount(mask[l]))
 // and (-1, -1, 0, popcount(mask[l])) when no vertex is valid.
 //
-// What bounds it.  The work is L * n_valid * w AND + POPC + ADD word
-// operations over a table small enough to stay in L1/L2 (12 KB for the
-// 300-vertex 60-cell analogue) and about 8 * L * w bytes of masks: at
-// L = 4096, n = 300, w = 10 that is 12.3 M popcounts against 0.4 MB of
-// traffic, so it is bound by the popcount issue rate (16 per clock per SM
-// on compute capability 9.0, the CUDA C++ Programming Guide's throughput
-// table), not by memory.
+// What bounds it.  count[l, v] is an AND-popcount matrix product of
+// [L x 32w] bits by [32w x n] bits with exact int32 sums: the tensor
+// cores' binary product (mma.sync m16n8k256 .and.popc, BMMA in SASS)
+// computes it.  On the CUDA cores the same work is L * n_valid * w
+// popcounts at 16 per clock per SM (12.3 M, 2.94 us at cell60's root
+// shape, n = 300, w = 10, L = 4096); on the tensor cores it is a few
+// thousand binary products, so the least time is the bytes: the table
+// once, the masks and valid words once, the output once (0.4 MB, about
+// 0.12 us at 3.35 TB/s), under a launch.
 //
-// Design.  One warp per lane, so there is no cross-block combine and no
-// atomic: the lane's mask and valid words sit in registers (the loops
-// over words are unrolled to MAXW, a compile-time bound on w), and the
-// warp's 32 threads stride over the vertices, thread t taking
-// v = 32 i + t, whose valid bit is bit t of word i.  Each thread keeps the
-// best 64-bit key (count + 1) << 32 | (0xFFFFFFFF - v), so a max over keys
-// is a max over counts with the smallest id winning ties; a shuffle
-// reduction over the warp makes the result deterministic.  Table rows are
-// read through L1/L2.  Making it fast (mask tiles in shared memory,
-// several lanes per warp, fusing the caller's epilogue) is later work.
+// Design.  A block of 8 warps takes 16 lanes (the product's M).  Each warp
+// holds the 16 lanes' mask words as the A fragments of every 256-bit
+// k-step in registers, and walks the vertices in 8-vertex tiles (the
+// product's N): warp p takes tiles p, p + 8, p + 16, ..., so the warps
+// split the vertices and each tile's valid bits are one word per lane
+// (tile t lies in word t / 4).  Table words are read as B fragments
+// straight from global memory (12 KB at cell60 stays in L1); words past w
+// and vertices past n read as 0.  The epilogue keeps, per (lane, vertex)
+// of the accumulator fragment, the count of a valid vertex in a running
+// sum and a running best (a strict comparison over ascending vertices
+// keeps the smallest id), then the 64-bit key
+// (count + 1) << 32 | (0xFFFFFFFF - v) is reduced by shuffles over the
+// quad that shares a lane and through shared memory over the 8 warps: max
+// and integer sum are associative, so the result is the same bits
+// whatever the order.  Eight warps: each walks a short chain of tiles,
+// and enough warps are resident to hide the latency of the loads and of
+// the products (four were slower on the card, sixteen no faster).
+//
+// Fragments of mma.m16n8k256 .b1 (PTX ISA, "Matrix fragments for
+// mma.m16n8k256"), with g = thread / 4 and q = thread % 4 in the warp:
+//   A (16 x 256, row-major):  a0 = row g,     bits 32q .. 32q + 31
+//                             a1 = row g + 8, bits 32q ..
+//                             a2 = row g,     bits 128 + 32q ..
+//                             a3 = row g + 8, bits 128 + 32q ..
+//   B (256 x 8, column-major): b0 = column g, bits 32q ..; b1 = column g,
+//                              bits 128 + 32q ..
+//   C (16 x 8 s32):            c0, c1 = row g, columns 2q, 2q + 1;
+//                              c2, c3 = row g + 8, columns 2q, 2q + 1.
+// So k-step s pairs mask word 8s + q (and 8s + 4 + q) of a lane with the
+// same word of a vertex's row.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarps = 8;          // warps per block, splitting the vertices
+constexpr int kLanesPerBlock = 16; // the product's M
 
-template <int MAXW>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__device__ __forceinline__ void bmma_and_popc(int (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned long long key_of(int c, int v) {
+  return ((unsigned long long)(c + 1) << 32) | (0xFFFFFFFFu - (uint32_t)v);
+}
+
+__device__ __forceinline__ unsigned long long max_u64(unsigned long long a,
+                                                      unsigned long long b) {
+  return a > b ? a : b;
+}
+
+// KS = number of 256-bit k-steps, ceil(w / 8).
+template <int KS>
+__global__ void __launch_bounds__(kWarps * 32)
 count_stats_kernel(const uint32_t* __restrict__ table,
                    const uint32_t* __restrict__ mask,
                    const uint32_t* __restrict__ valid,
                    int32_t* __restrict__ out, int n, int w, int lanes) {
-  const int lane = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int t = threadIdx.x & 31;
-  if (lane >= lanes) return;  // the whole warp leaves together
+  __shared__ unsigned long long s_key[kWarps][kLanesPerBlock];
+  __shared__ int s_sum[kWarps][kLanesPerBlock];
 
-  uint32_t m[MAXW], vw[MAXW];
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int g = t >> 2, q = t & 3;
+  const int lane0 = blockIdx.x * kLanesPerBlock;
+  const int la = lane0 + g, lb = lane0 + g + 8;  // the thread's two lanes
+  const bool ina = la < lanes, inb = lb < lanes;
+
+  // A fragments: the 16 lanes' mask words, 0 past w and past the lanes.
+  uint32_t a[KS][4];
+  int mcount_a = 0, mcount_b = 0;
 #pragma unroll
-  for (int k = 0; k < MAXW; ++k) {
-    m[k] = k < w ? mask[(size_t)lane * w + k] : 0u;
-    vw[k] = k < w ? valid[(size_t)lane * w + k] : 0u;
+  for (int s = 0; s < KS; ++s) {
+    const int k0 = 8 * s + q, k1 = 8 * s + 4 + q;
+    a[s][0] = ina && k0 < w ? mask[(size_t)la * w + k0] : 0u;
+    a[s][1] = inb && k0 < w ? mask[(size_t)lb * w + k0] : 0u;
+    a[s][2] = ina && k1 < w ? mask[(size_t)la * w + k1] : 0u;
+    a[s][3] = inb && k1 < w ? mask[(size_t)lb * w + k1] : 0u;
+    mcount_a += __popc(a[s][0]) + __popc(a[s][2]);
+    mcount_b += __popc(a[s][1]) + __popc(a[s][3]);
   }
 
-  unsigned long long key = 0ull;  // decodes to (best = -1, arg = -1)
-  int sum = 0;
+  int best_a = -1, arg_a = -1, sum_a = 0;
+  int best_b = -1, arg_b = -1, sum_b = 0;
+  const int tiles = (n + 7) >> 3;
+  for (int tile = warp; tile < tiles; tile += kWarps) {
+    const int v0 = 8 * tile;           // this warp's 8 vertices
+    const int i = tile >> 2;           // their valid word
+    const int vrow = v0 + g;           // the vertex whose B fragment t loads
+    const uint32_t* row = table + (size_t)vrow * w;
+    int d[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int i = 0; i < MAXW; ++i) {
-    const int v = i * 32 + t;
-    if (i < w && v < n && ((vw[i] >> t) & 1u)) {
-      const uint32_t* row = table + (size_t)v * w;
-      int c = 0;
+    for (int s = 0; s < KS; ++s) {
+      const int k0 = 8 * s + q, k1 = 8 * s + 4 + q;
+      const uint32_t b0 = vrow < n && k0 < w ? row[k0] : 0u;
+      const uint32_t b1 = vrow < n && k1 < w ? row[k1] : 0u;
+      bmma_and_popc(d, a[s], b0, b1);
+    }
+    // The accumulator's vertices: v0 + 2q and v0 + 2q + 1.
+    const int shift = 8 * (tile & 3) + 2 * q;
+    const uint32_t va = ina ? valid[(size_t)la * w + i] >> shift : 0u;
+    const uint32_t vb = inb ? valid[(size_t)lb * w + i] >> shift : 0u;
 #pragma unroll
-      for (int k = 0; k < MAXW; ++k) {
-        if (k < w) c += __popc(row[k] & m[k]);
+    for (int c = 0; c < 2; ++c) {
+      const int v = v0 + 2 * q + c;
+      if (v < n) {
+        if ((va >> c) & 1u) {
+          sum_a += d[c];
+          if (d[c] > best_a) { best_a = d[c]; arg_a = v; }
+        }
+        if ((vb >> c) & 1u) {
+          sum_b += d[2 + c];
+          if (d[2 + c] > best_b) { best_b = d[2 + c]; arg_b = v; }
+        }
       }
-      sum += c;
-      const unsigned long long cand =
-          ((unsigned long long)(c + 1) << 32) | (0xFFFFFFFFu - (uint32_t)v);
-      key = cand > key ? cand : key;
     }
   }
 
+  // Reduce over the quad (q = 0..3) that shares the two lanes.
+  unsigned long long key_a = best_a < 0 ? 0ull : key_of(best_a, arg_a);
+  unsigned long long key_b = best_b < 0 ? 0ull : key_of(best_b, arg_b);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long other = __shfl_xor_sync(0xFFFFFFFFu, key, off);
-    key = other > key ? other : key;
-    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, off);
+  for (int off = 1; off < 4; off <<= 1) {
+    key_a = max_u64(key_a, __shfl_xor_sync(0xFFFFFFFFu, key_a, off));
+    key_b = max_u64(key_b, __shfl_xor_sync(0xFFFFFFFFu, key_b, off));
+    sum_a += __shfl_xor_sync(0xFFFFFFFFu, sum_a, off);
+    sum_b += __shfl_xor_sync(0xFFFFFFFFu, sum_b, off);
+    mcount_a += __shfl_xor_sync(0xFFFFFFFFu, mcount_a, off);
+    mcount_b += __shfl_xor_sync(0xFFFFFFFFu, mcount_b, off);
   }
+  if (q == 0) {
+    s_key[warp][g] = key_a;
+    s_key[warp][g + 8] = key_b;
+    s_sum[warp][g] = sum_a;
+    s_sum[warp][g + 8] = sum_b;
+  }
+  __syncthreads();
 
-  if (t == 0) {
-    int mcount = 0;
+  // Warp 0 combines the warps' partials; its quad leader q == 0 holds
+  // the lane's mask count.
+  if (warp == 0 && q == 0) {
 #pragma unroll
-    for (int k = 0; k < MAXW; ++k) mcount += __popc(m[k]);
-    const int best = (int)(key >> 32) - 1;
-    const int arg = best < 0 ? -1 : (int)(0xFFFFFFFFu - (uint32_t)key);
-    int32_t* o = out + (size_t)lane * 4;
-    o[0] = best;
-    o[1] = arg;
-    o[2] = sum;
-    o[3] = mcount;
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      const int lane = lane0 + r;
+      if (lane >= lanes) continue;
+      unsigned long long key = 0ull;
+      int sum = 0;
+#pragma unroll
+      for (int p = 0; p < kWarps; ++p) {
+        key = max_u64(key, s_key[p][r]);
+        sum += s_sum[p][r];
+      }
+      const int best = (int)(key >> 32) - 1;
+      int32_t* o = out + (size_t)lane * 4;
+      o[0] = best;
+      o[1] = best < 0 ? -1 : (int)(0xFFFFFFFFu - (uint32_t)key);
+      o[2] = sum;
+      o[3] = h == 0 ? mcount_a : mcount_b;
+    }
   }
 }
 
-template <int MAXW>
+template <int KS>
 void launch(const uint32_t* table, const uint32_t* mask,
             const uint32_t* valid, int32_t* out, int n, int w, int lanes,
             cudaStream_t stream) {
-  const int blocks = (lanes + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  count_stats_kernel<MAXW><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  const int blocks = (lanes + kLanesPerBlock - 1) / kLanesPerBlock;
+  count_stats_kernel<KS><<<blocks, kWarps * 32, 0, stream>>>(
       table, mask, valid, out, n, w, lanes);
 }
 
@@ -116,16 +213,11 @@ extern "C" int count_stats_launch(const void* table, const void* mask,
   if (n < 1 || w < 1 || lanes < 1 || w > 32 || n > 32 * w) {
     return (int)cudaErrorInvalidValue;
   }
-  if (w <= 2) {
-    launch<2>(tb, mk, vd, o, n, w, lanes, s);
-  } else if (w <= 4) {
-    launch<4>(tb, mk, vd, o, n, w, lanes, s);
-  } else if (w <= 8) {
-    launch<8>(tb, mk, vd, o, n, w, lanes, s);
-  } else if (w <= 16) {
-    launch<16>(tb, mk, vd, o, n, w, lanes, s);
-  } else {
-    launch<32>(tb, mk, vd, o, n, w, lanes, s);
+  switch ((w + 7) / 8) {
+    case 1: launch<1>(tb, mk, vd, o, n, w, lanes, s); break;
+    case 2: launch<2>(tb, mk, vd, o, n, w, lanes, s); break;
+    case 3: launch<3>(tb, mk, vd, o, n, w, lanes, s); break;
+    default: launch<4>(tb, mk, vd, o, n, w, lanes, s); break;
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,12 @@
 """Causal flash attention (counterpart of ``repro.kernels.flash_attention``).
 
 ``flash_attention`` dispatches by the device of its tensors: on CUDA
-tensors it launches the hand-written Hopper kernel
+tensors it launches a hand-written Hopper kernel of
 ``csrc/flash_attention.cu`` (or raises), on CPU tensors it runs the plain
 version, ``models.attention.blocked_attention``.  There is no fallback
-from one to the other.  The kernel takes any S (a ragged last tile is
-masked) and the head dims of ``HEAD_DIMS``.
+from one to the other.  On the card the dtype picks the kernel: bfloat16
+runs the ``wgmma`` + TMA kernel, float32 the CUDA-core kernel.  Both take
+any S (a ragged last tile is masked) and the head dims of ``HEAD_DIMS``.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal attention, head h reading KV head h // (H / G), with an
     optional sliding ``window`` and tanh ``softcap``; ``query_scale``
     replaces 1/sqrt(hd).  ``block_q`` / ``block_k`` are the plain
-    version's blocks: the CUDA kernel has its own tiles and ignores them."""
+    version's blocks: the CUDA kernels have their own tiles and ignore
+    them."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, window=window,

@@ -65,6 +65,34 @@ def test_cuda_kernel_equals_plain_version(n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,w", [(1, 1), (20, 1), (300, 10), (257, 10),
+                                 (31, 32), (1000, 32), (1024, 32)])
+def test_cuda_kernel_equals_plain_version_at_any_width(n, w):
+    """Rows wider than n needs (w up to 32), n not a multiple of 32, lane
+    counts that are not multiples of a block's 16, all-tied counts and
+    lanes with nothing valid."""
+    need_card()
+    rng = np.random.RandomState(n * 40 + w)
+    for lanes in (1, 17, 1000):
+        table = random_words(rng, (n, w))
+        mask = random_words(rng, (lanes, w))
+        valid = mask & random_words(rng, (lanes, w))
+        valid[::3] = 0                          # nothing valid
+        valid[1::3] = 0xFFFFFFFF                # bits past n set too
+        tied = np.zeros_like(mask)              # every count 0: all tie
+        for m in (mask, tied):
+            t, mk, v = (words(a, "cuda") for a in (table, m, valid))
+            before = bitset_ops.LAUNCHES["count_stats"]
+            got = bitset_ops.count_stats(t, mk, v)
+            torch.cuda.synchronize()
+            assert bitset_ops.LAUNCHES["count_stats"] == before + 1
+            assert torch.equal(got, ref.count_stats_ref(t, mk, v))
+        assert (got[::3, :3].cpu() == torch.tensor([-1, -1, 0])).all()
+        if lanes > 1:
+            assert got[1, :2].tolist() == [0, 0]  # smallest valid id
+
+
+@pytest.mark.gpu
 def test_cuda_kernel_rejects_rows_wider_than_it_takes():
     need_card()
     t = torch.zeros((1100, 35), dtype=torch.int32, device="cuda")
@@ -198,6 +226,14 @@ QK_SCALE = 2.5
     (1, 256, 4, 2, 64, 100, 50.0, None, torch.float32),
     (2, 130, 4, 4, 128, 50, 30.0, None, torch.bfloat16),
     (1, 300, 4, 2, 128, None, 50.0, 1 / 12, torch.bfloat16),
+    # The bf16 wgmma kernel: hd 64 / 80 / 128, r = H / G in {1, 7, 8}, S
+    # below, at and past the 128-row tile, windows below a tile and past S.
+    (1, 100, 8, 1, 64, None, 0.0, None, torch.bfloat16),      # S < tile
+    (2, 128, 4, 4, 128, None, 0.0, None, torch.bfloat16),     # S = tile
+    (1, 333, 7, 1, 80, None, 0.0, None, torch.bfloat16),      # hd=80, r=7
+    (1, 640, 16, 2, 128, 50, 0.0, None, torch.bfloat16),      # r=8
+    (1, 300, 4, 4, 64, 1000, 30.0, None, torch.bfloat16),     # window > S
+    (1, 513, 14, 2, 80, 200, 50.0, 1 / 12, torch.bfloat16),
 ])
 def test_flash_attention_kernel_equals_plain_version(b, s, h, g, hd, window,
                                                      softcap, qs, dtype):
@@ -221,7 +257,7 @@ def test_flash_attention_kernel_equals_plain_version(b, s, h, g, hd, window,
     _assert_close(got, want, tol, rel_tol)
     # The inputs can tell a kernel that skipped the softcap or the window.
     faults = ([plain(softcap=0.0)] if softcap else []) + \
-        ([plain(window=None)] if window is not None else [])
+        ([plain(window=None)] if window is not None and window < s else [])
     for bad in faults:
         with pytest.raises(AssertionError):
             _assert_close(bad, want, tol, rel_tol)

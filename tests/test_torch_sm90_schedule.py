@@ -1,0 +1,229 @@
+"""Host-side logic of the port's two Hopper kernels, checked on the CPU.
+
+``flash_attention``'s bf16 kernel: the key tiles each query tile visits,
+the heaviest-first order of the query tiles and the tiles that need a mask
+(written out below as the kernel computes them from its block index,
+``csrc/flash_attention.cu``, namespace ``sm90``), held against a
+brute-force mask; and the padding of the head dim to whole swizzle atoms.
+
+``count_stats``: the kernel's decomposition of the pass into binary
+products (16 lanes x 8 vertices x 256 bits, words 8s + q and 8s + 4 + q
+of k-step s paired, zero past w and past n), eight warps taking every
+eighth 8-vertex tile, a strict running best per thread over ascending
+vertices and a 64-bit key reduction, written out in numpy.  It must be
+bitwise equal to the port's plain version and to the reference's jnp and
+Pallas (interpret mode) versions, for n in {1, 31, 33, 300} and w up to 32.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.kernels import bitset_ops as jops
+from repro.kernels import ref as jref
+from repro_torch.convert import words
+from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import ref
+
+
+# -- flash_attention: the tile schedule ---------------------------------------
+
+#: The bf16 kernel's tiles: 128 query rows per block (two warpgroups of
+#: 64), K/V tiles of 128 keys, 64-column swizzle atoms of 128-byte rows.
+BLOCK_Q = BLOCK_K = 128
+WARPGROUP_ROWS = 64
+ATOM_COLS = 64
+
+
+def head_dim_pad(hd):
+    """Columns the kernel stages per row: whole atoms (its launcher takes
+    hd = 64 as one atom, 80 and 128 as two; TMA fills past hd with 0)."""
+    return ATOM_COLS * -(-hd // ATOM_COLS)
+
+
+def key_tiles(q_tile, s, window):
+    """The key tiles the kernel visits for query tile ``q_tile``
+    (``kt_first`` .. ``kt_last``)."""
+    q0 = q_tile * BLOCK_Q
+    first = max(0, q0 - window + 1) if window else 0
+    last = min(q0 + BLOCK_Q, s) - 1
+    return range(first // BLOCK_K, last // BLOCK_K + 1)
+
+
+def tile_order(s):
+    """Query tiles in launch order: block y runs tile n - 1 - y."""
+    n = -(-s // BLOCK_Q)
+    return [n - 1 - y for y in range(n)]
+
+
+def needs_mask(row0, k0, window):
+    """The kernel's ``masked``: does key tile ``k0`` hide a key from a row
+    of the warpgroup whose rows are ``row0 .. row0 + 63``?"""
+    causal = k0 + BLOCK_K - 1 > row0
+    return causal or bool(window) and k0 <= row0 + WARPGROUP_ROWS - 1 - window
+
+
+def visible(rows, keys, s, window):
+    """bool[rows, keys]: causal (and window) visibility of real keys."""
+    r, k = np.asarray(rows)[:, None], np.asarray(keys)[None, :]
+    ok = (k <= r) & (k < s)
+    if window:
+        ok &= r - k < window
+    return ok
+
+
+SCHEDULES = [(1, None), (100, None), (128, None), (129, None), (300, 50),
+             (640, 50), (1000, 128), (1000, 129), (300, 1000), (4096, None),
+             (8192, 4096), (777, 300)]
+
+
+@pytest.mark.parametrize("s,window", SCHEDULES)
+def test_key_tiles_are_the_tiles_with_a_visible_key(s, window):
+    n_k = -(-s // BLOCK_K)
+    for qt in range(-(-s // BLOCK_Q)):
+        q0 = qt * BLOCK_Q
+        rows = np.arange(q0, min(q0 + BLOCK_Q, s))
+        want = [kt for kt in range(n_k) if visible(
+            rows, np.arange(kt * BLOCK_K, (kt + 1) * BLOCK_K),
+            s, window).any()]
+        assert list(key_tiles(qt, s, window)) == want
+
+
+@pytest.mark.parametrize("s,window", SCHEDULES)
+def test_query_tiles_run_heaviest_first(s, window):
+    order = tile_order(s)
+    assert sorted(order) == list(range(-(-s // BLOCK_Q)))
+    work = [len(key_tiles(qt, s, window)) for qt in order]
+    assert work == sorted(work, reverse=True)
+    assert order[0] == len(order) - 1          # the last causal tile first
+
+
+@pytest.mark.parametrize("window", [None, 1, 50, 64, 127, 128, 129, 300,
+                                    4096])
+def test_mask_is_applied_exactly_where_a_key_is_hidden(window):
+    s = 1 << 20                                 # no key past the end here
+    for row0 in range(0, 1024, WARPGROUP_ROWS):
+        rows = np.arange(row0, row0 + WARPGROUP_ROWS)
+        for k0 in range(0, row0 + BLOCK_K, BLOCK_K):
+            keys = np.arange(k0, k0 + BLOCK_K)
+            hidden = not visible(rows, keys, s, window).all()
+            assert needs_mask(row0, k0, window) == hidden, (row0, k0)
+
+
+def test_a_ragged_tile_is_masked():
+    """Keys past S lie after every real row, so the causal test masks the
+    tile that holds them (here S = 200)."""
+    for row0 in (128, 192):
+        assert needs_mask(row0, 128, None)
+
+
+@pytest.mark.parametrize("hd,pad", [(16, 64), (64, 64), (80, 128),
+                                    (96, 128), (128, 128)])
+def test_head_dim_pads_to_whole_atoms(hd, pad):
+    assert head_dim_pad(hd) == pad
+    for hd_k in flash.HEAD_DIMS:
+        assert head_dim_pad(hd_k) % ATOM_COLS == 0
+        assert 2 * hd_k % 16 == 0       # TMA strides: multiples of 16 bytes
+
+
+# -- count_stats: the binary-product decomposition ---------------------------
+
+def popcount(x):
+    x = x.astype(np.uint64)
+    return np.array([bin(int(v)).count("1") for v in x.ravel()],
+                    np.int64).reshape(x.shape)
+
+
+def count_stats_tiles(table, mask, valid, warps=8):
+    """``count_stats`` as the CUDA kernel decomposes it (see
+    ``csrc/count_stats.cu``): returns int32[L, 4]."""
+    n, w = table.shape
+    lanes = mask.shape[0]
+    ks = -(-w // 8)
+    groups = -(-n // 32)                        # valid words per lane
+    a = np.zeros((-(-lanes // 16) * 16, 8 * ks), np.uint32)
+    a[:lanes, :w] = mask
+    b = np.zeros((32 * groups, 8 * ks), np.uint32)
+    b[:n, :w] = table
+    vd = np.zeros((a.shape[0], w), np.uint32)
+    vd[:lanes] = valid
+    out = np.zeros((lanes, 4), np.int64)
+    for lane0 in range(0, a.shape[0], 16):
+        rows = a[lane0:lane0 + 16]
+        keys = np.zeros((warps, 16), np.uint64)
+        sums = np.zeros((warps, 16), np.int64)
+        for p in range(warps):
+            # Thread (g, q) of warp p: lanes g and g + 8, vertices 2q, 2q+1
+            # of each 8-vertex tile; a strict best over ascending vertices.
+            best = np.full((16, 4), -1)
+            arg = np.full((16, 4), -1)
+            part = np.zeros((16, 4), np.int64)
+            for tile in range(p, -(-n // 8), warps):
+                v0, i = 8 * tile, tile // 4
+                d = np.zeros((16, 8), np.int64)
+                for s in range(ks):
+                    for q in range(4):
+                        for k in (8 * s + q, 8 * s + 4 + q):
+                            d += popcount(rows[:, k:k + 1]
+                                          & b[None, v0:v0 + 8, k])
+                shift = 8 * (tile % 4)
+                bits = vd[lane0:lane0 + 16, i:i + 1] >> np.arange(
+                    shift, shift + 8, dtype=np.uint32)[None]
+                for q in range(4):
+                    for c in range(2):
+                        v = v0 + 2 * q + c
+                        if v >= n:
+                            continue
+                        ok = (bits[:, 2 * q + c] & 1) == 1
+                        cnt = d[:, 2 * q + c]
+                        part[:, q] += np.where(ok, cnt, 0)
+                        better = ok & (cnt > best[:, q])
+                        best[:, q] = np.where(better, cnt, best[:, q])
+                        arg[:, q] = np.where(better, v, arg[:, q])
+            key = np.where(best < 0, 0, ((best + 1).astype(np.uint64) << 32)
+                           | (0xFFFFFFFF - arg.astype(np.int64)
+                              ).astype(np.uint64))
+            keys[p] = key.max(axis=1)
+            sums[p] = part.sum(axis=1)
+        key = keys.max(axis=0)
+        bst = (key >> np.uint64(32)).astype(np.int64) - 1
+        low = (key & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        n_out = min(16, lanes - lane0)
+        out[lane0:lane0 + n_out, 0] = bst[:n_out]
+        out[lane0:lane0 + n_out, 1] = np.where(bst < 0, -1,
+                                               0xFFFFFFFF - low)[:n_out]
+        out[lane0:lane0 + n_out, 2] = sums.sum(axis=0)[:n_out]
+        out[lane0:lane0 + n_out, 3] = popcount(
+            rows[:n_out]).sum(axis=1)
+    return out.astype(np.int32)
+
+
+def random_words(rng, shape):
+    return rng.randint(0, 2 ** 32, size=shape, dtype=np.uint64).astype(
+        np.uint32)
+
+
+@pytest.mark.parametrize("n,w", [(1, 1), (1, 9), (31, 1), (31, 32),
+                                 (33, 2), (33, 17), (300, 10), (300, 24),
+                                 (300, 32)])
+def test_count_stats_tiles_equal_the_plain_and_reference_passes(n, w):
+    rng = np.random.RandomState(n * 33 + w)
+    lanes = 21                  # not a multiple of the 16 lanes of a block
+    table = random_words(rng, (n, w))
+    mask = random_words(rng, (lanes, w))
+    valid = mask & random_words(rng, (lanes, w))
+    valid[::4] = 0                              # nothing valid
+    valid[1::4] = 0xFFFFFFFF                    # bits past n set too
+    mask[2] = 0                                 # every count 0: all tie
+    valid[2] = 0xFFFFFFFF
+    got = count_stats_tiles(table, mask, valid)
+    plain = ref.count_stats_ref(words(table), words(mask),
+                                words(valid)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    jt, jm, jv = (jnp.asarray(x) for x in (table, mask, valid))
+    np.testing.assert_array_equal(got, np.asarray(jref.count_stats_ref(
+        jt, jm, jv)))
+    np.testing.assert_array_equal(got, np.asarray(jops.count_stats(
+        jt, jm, jv, tile=32, interpret=True)))
+    assert (got[::4, :3] == [-1, -1, 0]).all()
+    assert (got[2, :2] == [0, 0]).all()         # smallest valid id wins
