@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero):
      SASS instruction counts (``cuobjdump -sass``) that show each
      redesigned kernel's hardware path: ``HGMMA`` and ``UTMALDG`` for
      ``flash_attention`` (bf16 route), ``BMMA`` and ``POPC`` for
-     ``count_stats``;
+     ``count_stats``, ``BMMA`` for ``stacked_count_stats``, ``HMMA`` for
+     ``ssd_scan`` (bf16 route);
   2. hold ``count_stats`` bitwise against its plain PyTorch version on
      CUDA tensors (n in {1, 31, 33, 100, 300, 1000} x L in {1, 7, 1024,
      8192}, all-invalid lanes, all-tied circulant degrees) and the
@@ -31,9 +32,11 @@ Phases (any failure raises and exits non-zero):
      to: its binary products run on the tensor cores) and, beside it,
      the popcount issue of the same work on the CUDA cores;
   6. hold ``stacked_count_stats`` bitwise against its plain version (K in
-     {1, 4, 16} x n in {1, 31, 33, 100, 300, 1000} x L in {1, 7, 1024,
-     8192}; mixed ids with parked lanes, all lanes parked, all-tied
-     circulant tables);
+     {1, 4, 16, 64} x n in {1, 31, 33, 100, 300, 1000} x L in {1, 7, 1024,
+     8192}; mixed ids with parked lanes, all lanes parked, ids sorted so
+     each instance's lanes lie together, every lane on one instance,
+     all-tied circulant tables; at K = 64 a window holds more tiles than
+     it has blocks);
   7. the multi-tenant service at full width through ``Solver.serve``:
      1024 lanes, 4 slots of n = 100, 8 requests of both families drained
      to their serial optima; the same first rounds again with the kernel
@@ -47,15 +50,18 @@ Phases (any failure raises and exits non-zero):
      lanes and drains to the same optima; a solve saved on the card
      resumes on the CPU to the same optimum;
  10. time ``stacked_count_stats`` and its plain version at the service's
-     shape (K=4, n=100, L=1024) and at (K=16, n=300, L=4096);
+     shape (K=4, n=100, L=1024, its live inputs) and at (K=16, n=300,
+     L=4096) with interleaved and with sorted ids, held to the bytes
+     bound with the popcount-issue bound beside it;
  11. ``popcount_reduce`` and ``masked_row_reduce`` at cell60's shape and a
      sweep, bitwise;
  12. ``flash_attention`` at qwen2-7b's and gemma2-27b's prefill widths
      (bf16: the wgmma kernel) and a sweep of both routes, held against the
      plain version with planted faults; timed over 50 launches with SDPA
      in the same call;
- 13. ``ssd_scan`` at mamba2-130m's width and a sweep; then the
-     ``kernels`` line for all six kernels.
+ 13. ``ssd_scan`` at mamba2-130m's width and a sweep, timed as the sum
+     of its three passes' kernels; then the ``kernels`` line for all six
+     kernels.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -108,7 +114,10 @@ DRAIN = (("vc", "gnp:100:10:7", 69), ("ds", "gnp:60:10:5", 11))
 DRAIN_LANES = 1024
 TWIN = ("vc", "gnp:60:15:7", 64)          # solved on the card and the CPU
 CELL60_LANES = 4096
-STACKED_KS = (1, 4, 16)
+STACKED_KS = (1, 4, 16, 64)
+#: Phase 6's id layouts (see ``stacked_case``): the kernel groups lanes by
+#: instance, and these are its best and worst cases.
+STACKED_KINDS = ("mixed", "parked", "sorted", "one", "tied")
 #: The service phase: 4 slots of n = 100 on 1024 lanes, 8 requests, so
 #: slots are reused.  Optima from the reference's serial oracle:
 #:   PYTHONPATH=src python -c "from repro import registry; \
@@ -442,10 +451,11 @@ def phase_cell60(report, rounds_after_boot=2):
 
 
 def is_kernel(name, key):
-    """Does the profiler's ``key`` (mangled or demangled) name the kernel
-    of ``csrc/<name>.cu``?  ``count_stats`` must not match
-    ``stacked_count_stats``."""
-    return re.search(r"(?<![A-Za-z_])" + name + "_kernel", key) is not None
+    """Does the profiler's ``key`` (mangled or demangled) name a kernel of
+    ``csrc/<name>.cu`` (``<name>_kernel`` or ``<name>_<pass>_kernel``)?
+    ``count_stats`` must not match ``stacked_count_stats``."""
+    return re.search(r"(?<![A-Za-z_])" + name + r"(_\w+)?_kernel",
+                     key) is not None
 
 
 def device_busy(fn):
@@ -498,20 +508,30 @@ def events_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(fn, name, iters, attempts=2):
-    """The profiler's device time per launch of the kernel of
-    ``csrc/<name>.cu`` over ``iters`` calls of ``fn``; None if no attempt
-    records the kernel (the caller then keeps the CUDA-event time)."""
+def profiled_ms(fn, name, iters, attempts=3):
+    """The profiler's device time per launch of each kernel of
+    ``csrc/<name>.cu`` over ``iters`` calls of ``fn``, and their sum, the
+    time of one call (``ssd_scan`` launches three passes, the others one
+    kernel); (None, {}) if no attempt records at least half of the
+    launches of each kernel (the caller then keeps the CUDA-event time).
+    Each kernel's time is averaged over the launches the profiler
+    recorded."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        total, count = {}, {}
         for evt in prof.key_averages():
             if is_kernel(name, evt.key) and evt.device_time_total:
-                return evt.device_time_total / evt.count / 1e3
-    return None
+                kernel = re.search(name + r"\w*_kernel", evt.key).group(0)
+                total[kernel] = total.get(kernel, 0.0) + evt.device_time_total
+                count[kernel] = count.get(kernel, 0) + evt.count
+        if total and min(count.values()) >= iters / 2:
+            parts = {k: total[k] / count[k] / 1e3 for k in total}
+            return sum(parts.values()), parts
+    return None, {}
 
 
 def measure(name, kernel, plain, iters, plain_iters, bound_ms,
@@ -520,13 +540,14 @@ def measure(name, kernel, plain, iters, plain_iters, bound_ms,
     time, else CUDA events), with its plain version, the PyTorch call that
     computes the same function where there is one, and the bound."""
     ev_ms = events_ms(kernel, iters)
-    prof_ms = profiled_ms(kernel, name, max(1, min(iters, 20)))
+    prof_ms, parts = profiled_ms(kernel, name, max(1, min(iters, 20)))
     plain_ms = events_ms(plain, plain_iters)
     library_ms = events_ms(library, iters) if library is not None else None
     return dict(shape, ms=prof_ms if prof_ms is not None else ev_ms,
                 ms_source="profiler" if prof_ms is not None else "events",
-                ms_events=ev_ms, ms_profiler=prof_ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                ms_events=ev_ms, ms_profiler=prof_ms, kernels_ms=parts,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def bound(popcounts, bytes_moved, clock_hz, sms):
@@ -620,8 +641,10 @@ def phase_timing(cell60_lanes, report):
 
 def stacked_case(rng, k, n, lanes, kind):
     """Inputs of ``stacked_count_stats``: random tables with mixed ids (a
-    third of the lanes parked), the same with every lane parked, or
-    circulant tables, whose counts all tie under the full mask."""
+    third of the lanes parked), the same with every lane parked, with ids
+    sorted (each instance's lanes together, none parked) or all on one
+    instance, or circulant tables, whose counts all tie under the full
+    mask (ids mixed)."""
     from repro_torch.convert import words
     from repro_torch.problems.graphs import (circulant_graph, full_mask,
                                              num_words)
@@ -639,6 +662,10 @@ def stacked_case(rng, k, n, lanes, kind):
     inst[::3] = -1
     if kind == "parked":
         inst[:] = -1
+    elif kind == "sorted":
+        inst = np.sort(rng.randint(0, k, size=lanes)).astype(np.int32)
+    elif kind == "one":
+        inst[:] = k - 1
     return (words(tables, DEV), torch.from_numpy(inst).to(DEV),
             words(mask, DEV), words(valid, DEV))
 
@@ -652,7 +679,7 @@ def phase_stacked_parity(report):
     for k in STACKED_KS:
         for n in PARITY_NS:
             for lanes in PARITY_LANES:
-                for kind in ("mixed", "parked", "tied"):
+                for kind in STACKED_KINDS:
                     if kind == "tied" and n < 3:
                         continue
                     tables, inst, mask, valid = stacked_case(rng, k, n,
@@ -668,8 +695,8 @@ def phase_stacked_parity(report):
                           f"L={lanes}")
                     cases += 1
     print(f"phase 6: stacked_count_stats bitwise equal to plain on {cases} "
-          f"cases (mixed ids with parked lanes, all parked, all tied)",
-          flush=True)
+          f"cases (mixed ids with parked lanes, all parked, sorted ids, one "
+          f"instance, all tied)", flush=True)
 
 
 # -- phases 7 to 9 ----------------------------------------------------------
@@ -956,28 +983,34 @@ def phase_checkpoints(report, svc):
 # -- phase 10 ---------------------------------------------------------------
 
 def stacked_times(tables, inst, mask, valid, clock_hz, sms):
-    """``stacked_count_stats`` timed on one input; its bound counts the
-    popcounts of the valid vertices of every unparked lane, or the bytes
-    of reading each input once and writing the output once."""
+    """``stacked_count_stats`` timed on one input.  Its binary products run
+    on the tensor cores, so the bound it is held to is the bytes of
+    reading each input once (the K tables, the ids, masks and valid words)
+    and writing the output once; beside it stands the popcount-issue
+    bound of the same work on the CUDA cores (the popcounts of the valid
+    vertices of every unparked lane), which bounded its first design."""
     from repro_torch.kernels import bitset_ops, ref
     from repro_torch.kernels.ref import bit_set
     k, n, w = tables.shape
     lanes = mask.shape[0]
     n_valid = int(bit_set(valid, n)[inst >= 0].sum())
-    return timed("stacked_count_stats",
-                 lambda: bitset_ops.stacked_count_stats(tables, inst, mask,
-                                                        valid),
-                 lambda: ref.stacked_count_stats_ref(tables, inst, mask,
-                                                     valid),
-                 n_valid * w,
-                 4 * (k * n * w + lanes + 2 * lanes * w + 4 * lanes),
-                 clock_hz, sms, K=k, n=n, w=w, L=lanes, valid_pairs=n_valid)
+    popcounts = n_valid * w
+    nbytes = 4 * (k * n * w + lanes + 2 * lanes * w + 4 * lanes)
+    popc_ms, _ = bound(popcounts, 0, clock_hz, sms)
+    return measure(
+        "stacked_count_stats",
+        lambda: bitset_ops.stacked_count_stats(tables, inst, mask, valid),
+        lambda: ref.stacked_count_stats_ref(tables, inst, mask, valid), 200,
+        20, *rate_bound(0, 1.0, nbytes), popcounts=popcounts, bytes=nbytes,
+        popc_bound_ms=popc_ms, K=k, n=n, w=w, L=lanes, valid_pairs=n_valid)
 
 
 def phase_stacked_timing(report, live):
     """The kernel at the service's shape (K=4, n=100, w=4, L=1024) on the
     live inputs of the service phase, and at (K=16, n=300, w=10, L=4096)
-    with every lane at the root of its instance."""
+    with every lane at the root of its instance, the ids interleaved
+    (lane l on instance l mod 16: every 16-lane tile of the lane order
+    holds 16 instances) and sorted (each instance's 256 lanes together)."""
     from repro_torch.convert import words
     from repro_torch.problems.graphs import full_mask
     clock_hz, sms = report["clock_max_sm_hz"], report["sms"]
@@ -986,20 +1019,28 @@ def phase_stacked_timing(report, live):
     rng = np.random.RandomState(2)
     k, n, lanes = 16, 300, CELL60_LANES
     full = words(np.broadcast_to(full_mask(n), (lanes, 10)).copy(), DEV)
-    inst = torch.arange(lanes, dtype=torch.int32, device=DEV) % k
-    large = dict(stacked_times(words(rand_words(rng, (k, n, 10)), DEV), inst,
-                               full, full, clock_hz, sms),
-                 inputs="random tables, every lane at its root")
-    for t in (service, large):
+    tables = words(rand_words(rng, (k, n, 10)), DEV)
+    lane = torch.arange(lanes, dtype=torch.int32, device=DEV)
+    interleaved = dict(stacked_times(tables, lane % k, full, full, clock_hz,
+                                     sms),
+                       inputs="random tables, every lane at its root, ids "
+                              "interleaved")
+    grouped = dict(stacked_times(tables, lane // (lanes // k), full, full,
+                                 clock_hz, sms),
+                   inputs="random tables, every lane at its root, ids "
+                          "sorted")
+    for t in (service, interleaved, grouped):
         print(f"phase 10: stacked_count_stats K={t['K']} n={t['n']} "
               f"w={t['w']} L={t['L']} ({t['inputs']}): kernel "
               f"{t['ms'] * 1e3:.2f} us ({t['ms_source']}; events "
               f"{t['ms_events'] * 1e3:.2f} us), plain "
               f"{t['plain_ms'] * 1e3:.1f} us, bound "
               f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
-              f"{t['popcounts']} popcounts, {t['bytes']} bytes)", flush=True)
-    report["stacked_timing"] = [service, large]
-    return service, large
+              f"{t['bytes']} bytes); popcount issue of the same work "
+              f"{t['popc_bound_ms'] * 1e3:.3f} us ({t['popcounts']} "
+              f"popcounts)", flush=True)
+    report["stacked_timing"] = [service, interleaved, grouped]
+    return service, interleaved, grouped
 
 
 # -- phases 11 to 13: the kernel library ------------------------------------
@@ -1403,7 +1444,10 @@ def phase_ssd(report):
           f"({t['ms_source']}; events {t['ms_events']:.3f} ms), plain "
           f"{t['plain_ms']:.1f} ms, bound {bound_ms * 1e3:.1f} us "
           f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
-          f"{b * h} blocks on {report['sms']} SMs", flush=True)
+          f"passes " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in
+                                 t["kernels_ms"].items())
+          + f"; {b * h * -(-s // chunk)} blocks a pass on {report['sms']} "
+          f"SMs", flush=True)
     del args, y, state
 
     for case in SSD_SWEEP:
@@ -1439,11 +1483,15 @@ def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
 
 
 #: The SASS instructions that show each redesigned kernel's hardware path:
-#: the tensor cores fed by TMA (flash_attention's bf16 route) and the
-#: tensor cores' binary product beside the popcounts of the mask counts
-#: (count_stats).  Each must appear at least once.
+#: the tensor cores fed by TMA (flash_attention's bf16 route), the tensor
+#: cores' binary product beside the popcounts of the mask counts
+#: (count_stats), the binary product (stacked_count_stats) and the
+#: tensor cores' bf16 product (ssd_scan's bf16 route, mma.sync).  Each
+#: must appear at least once.
 SASS_PATHS = {"flash_attention": ("HGMMA", "UTMALDG"),
-              "count_stats": ("BMMA", "POPC")}
+              "count_stats": ("BMMA", "POPC"),
+              "stacked_count_stats": ("BMMA",),
+              "ssd_scan": ("HMMA",)}
 #: An instruction whose opcode is {} (after its address and an optional
 #: predicate), not a modifier of another opcode (BMMA's ".POPC").
 SASS_OP = r"^\s*/\*[0-9a-f]{{4,}}\*/\s+(?:@!?U?P[T0-9]+\s+)?{}\b"
@@ -1508,14 +1556,15 @@ def main() -> int:
     svc, service_inputs = phase_service_steps(report)
     phase_service_twin(report)
     phase_checkpoints(report, svc)
-    service, large = phase_stacked_timing(report, service_inputs)
+    service, interleaved, grouped = phase_stacked_timing(report,
+                                                         service_inputs)
     popcount, row_reduce = phase_bitset_library(report)
     attention = phase_attention(report)
     ssd = phase_ssd(report)
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small]),
         kernel_entry("stacked_count_stats", report, service,
-                     [service, large]),
+                     [service, interleaved, grouped]),
         kernel_entry("popcount_reduce", report, popcount, [popcount]),
         kernel_entry("masked_row_reduce", report, row_reduce, [row_reduce]),
         kernel_entry("flash_attention", report, attention[0], attention,

@@ -6,7 +6,9 @@ on CPU tensors it runs the plain version, ``models.ssm.ssd_chunked``.
 There is no fallback from one to the other.  The kernel takes any S (a
 ragged last chunk is zero-padded, which is exact), chunks up to 128 whose
 working set fits the card's shared memory, and the configs' head widths,
-P up to 64.
+P up to 64.  Its three passes (each chunk's own state, the carry from
+chunk to chunk, the output) go through one C entry point, one launch;
+the wrapper allocates the chunks' states between the passes.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ MAX_P = 64
 #: working set does not fit.
 CUDA_ERROR_INVALID_VALUE = 1
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
 
 
 def _check(x, dt, a, b, c, d) -> None:
@@ -73,14 +75,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, n, p), dtype=torch.float32,
                         device=x.device)
+    # Each chunk's state [N, P] and its total decay, per (batch, head).
+    chunks = -(-s // chunk)
+    scratch = torch.empty((bsz * h * chunks * (n * p + 1),),
+                          dtype=torch.float32, device=x.device)
     try:
         _build.launch("ssd_scan", _ARGTYPES,
                       [x.data_ptr(), dt.data_ptr(), a.data_ptr(),
                        b.data_ptr(), c.data_ptr(), d.data_ptr(),
-                       y.data_ptr(), state.data_ptr(), bsz, s, h, p, g, n,
-                       chunk, int(x.dtype == torch.bfloat16)], x.device)
+                       y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+                       bsz, s, h, p, g, n, chunk,
+                       int(x.dtype == torch.bfloat16)], x.device)
     except _build.LaunchError as exc:
-        # The launcher opts the kernel into the shared memory that chunk,
+        # The launcher opts each pass into the shared memory that chunk,
         # N and P need; the card refuses more than its limit per block.
         if exc.code != CUDA_ERROR_INVALID_VALUE:
             raise

@@ -117,18 +117,25 @@ def test_solve_on_the_card_equals_the_cpu(family, spec, lanes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k,n", [(1, 33), (4, 100), (16, 300)])
+@pytest.mark.parametrize("k,n", [(1, 33), (4, 100), (16, 300), (64, 100)])
 def test_stacked_kernel_equals_plain_version(k, n):
+    """Ids mixed with parked lanes, all parked, sorted (each instance's
+    lanes together) and all on one instance: the kernel groups lanes by
+    instance itself, so every layout must give the plain version's bits.
+    At K = 64 mixed ids leave more tiles in a window than it has blocks."""
     need_card()
     rng = np.random.RandomState(k * n)
     w = num_words(n)
-    for lanes in (1, 7, 1024):
+    for lanes in (1, 7, 1024, 4096):
         tables = random_words(rng, (k, n, w))
         mask = random_words(rng, (lanes, w))
         valid = mask & random_words(rng, mask.shape)
         inst = rng.randint(-1, k, size=lanes).astype(np.int32)
         inst[0] = -1                                  # a parked lane
-        for ids in (inst, np.full_like(inst, -1)):    # and all parked
+        layouts = (inst, np.full_like(inst, -1),     # and all parked
+                   np.sort(rng.randint(0, k, size=lanes)).astype(np.int32),
+                   np.full_like(inst, k - 1))
+        for ids in layouts:
             t, m, v = (words(a, "cuda") for a in (tables, mask, valid))
             i = torch.from_numpy(ids).cuda()
             before = bitset_ops.LAUNCHES["stacked_count_stats"]
@@ -289,6 +296,7 @@ def _ssd_inputs(rng, b, s, h, p, g, n, dtype, dt_shift):
     (2, 300, 4, 32, 2, 64, 64, torch.float32, -5.0),     # G=2, ragged S
     (1, 100, 2, 64, 1, 16, 43, torch.float32, -5.0),     # chunk 43, ragged
     (1, 256, 4, 64, 1, 128, 128, torch.float32, 1.0),    # decay > exp(88)
+    (4, 512, 24, 64, 1, 128, 128, torch.bfloat16, -5.0),  # mamba2-130m
 ])
 def test_ssd_scan_kernel_equals_plain_version(b, s, h, p, g, n, chunk,
                                               dtype, dt_shift):
@@ -320,9 +328,13 @@ def test_ssd_scan_kernel_equals_plain_version(b, s, h, p, g, n, chunk,
 def test_ssd_scan_kernel_refuses_a_chunk_that_does_not_fit():
     need_card()
     rng = np.random.RandomState(0)
-    big = _ssd_inputs(rng, 1, 8, 1, 64, 1, 1024, torch.float32, -5.0)
-    with pytest.raises(ValueError):          # a 1024 x 64 f32 state alone
-        ops.ssd_scan(*big, chunk=128)        # is 256 KB
+    for dtype in (torch.float32, torch.bfloat16):
+        # N = 1024: the f32 passes stage a [128, 1024] B (512 KB), the
+        # bf16 output pass C and B [128, 1024] and S hi/lo [1024, 64]
+        # (806 KB); the card gives a block 227 KB.
+        big = _ssd_inputs(rng, 1, 8, 1, 64, 1, 1024, dtype, -5.0)
+        with pytest.raises(ValueError):
+            ops.ssd_scan(*big, chunk=128)
     # The refusal leaves no error behind for the next launch.
     args = _ssd_inputs(rng, 1, 64, 2, 32, 1, 16, torch.float32, -5.0)
     y, state = ops.ssd_scan(*args, chunk=32)

@@ -13,11 +13,26 @@ eighth 8-vertex tile, a strict running best per thread over ascending
 vertices and a 64-bit key reduction, written out in numpy.  It must be
 bitwise equal to the port's plain version and to the reference's jnp and
 Pallas (interpret mode) versions, for n in {1, 31, 33, 300} and w up to 32.
+
+``stacked_count_stats``: the kernel's grouping of lanes by instance
+(``csrc/stacked_count_stats.cu``): windows of 256 lanes, each instance's
+lanes ranked by position (the counts of the warps before a lane, then its
+rank among the equal ids of its warp), runs cut into 16-row tiles numbered
+in the order of the runs' first positions, no more tiles than the bound
+the launcher sizes the grid by, a window's blocks (up to 24) taking every
+tile once, and count_stats' tiles above on each, every result sent back
+to its lane.  It must be bitwise equal to the port's plain version and to
+the reference's Pallas kernel at ``stages`` 1 and 2 (interpret mode) on
+interleaved, sorted, one-instance, partly parked and all-parked ids, a
+lane count that is not a multiple of the window, all-tied tables, and
+more instances than a window has blocks.  Ids at or above K lie outside
+the contract and are not drawn.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.kernels import bitset_ops as jops
 from repro.kernels import ref as jref
@@ -227,3 +242,149 @@ def test_count_stats_tiles_equal_the_plain_and_reference_passes(n, w):
         jt, jm, jv, tile=32, interpret=True)))
     assert (got[::4, :3] == [-1, -1, 0]).all()
     assert (got[2, :2] == [0, 0]).all()         # smallest valid id wins
+
+
+# -- stacked_count_stats: lanes grouped by instance --------------------------
+
+#: The kernel's window of lanes grouped together, the rows of a tile and
+#: the most blocks a window launches.
+WINDOW = 256
+ROWS = 16
+MAX_BLOCKS = 24
+
+
+def tile_bound(k):
+    """The most tiles a window of K instances can hold."""
+    return (WINDOW + (ROWS - 1) * min(k, WINDOW)) // ROWS
+
+
+def window_tiles(ids, k):
+    """The tiles of one window, as the kernel numbers them: a list of
+    (instance, window positions of its rows).  ``ids`` are the window's
+    ids (fewer than WINDOW in the last window); ids < 0 or >= K join no
+    tile."""
+    live = [(pos, int(i)) for pos, i in enumerate(ids) if 0 <= i < k]
+    firsts = {}
+    for pos, i in live:
+        firsts.setdefault(i, pos)
+    tiles = []
+    for i in sorted(firsts, key=firsts.get):       # by first position
+        run = [pos for pos, j in live if j == i]  # ranked by position
+        # The kernel's rank: the counts of the warps before the lane, then
+        # its rank among the equal ids of its own warp.
+        for place, pos in enumerate(run):
+            warp, lane = divmod(pos, 32)
+            before = sum(1 for p, j in live if j == i and p // 32 < warp)
+            mine = sum(1 for p, j in live if j == i and p // 32 == warp
+                       and p % 32 < lane)
+            assert before + mine == place
+        tiles += [(i, run[r:r + ROWS]) for r in range(0, len(run), ROWS)]
+    return tiles
+
+
+def stacked_count_stats_tiles(tables, inst, mask, valid):
+    """``stacked_count_stats`` as the CUDA kernel schedules it: returns
+    int32[L, 4]."""
+    k = tables.shape[0]
+    lanes = len(inst)
+    out = np.full((lanes, 4), -7, np.int64)        # every lane is written
+    out[(inst < 0) | (inst >= k)] = [-1, -1, 0, 0]
+    for w0 in range(0, lanes, WINDOW):
+        tiles = window_tiles(inst[w0:w0 + WINDOW], k)
+        assert len(tiles) <= tile_bound(k)
+        # Block y of the window takes tiles y, y + blocks, ...: each once.
+        blocks = min(tile_bound(k), MAX_BLOCKS)
+        taken = sorted(t for y in range(blocks)
+                       for t in range(y, len(tiles), blocks))
+        assert taken == list(range(len(tiles)))
+        for i, rows in tiles:
+            assert 1 <= len(rows) <= ROWS
+            lanes_ = [w0 + pos for pos in rows]
+            out[lanes_] = count_stats_tiles(tables[i], mask[lanes_],
+                                            valid[lanes_])
+    return out.astype(np.int32)
+
+
+def stacked_layout(rng, layout, k, lanes):
+    """Instance ids of a layout; every one below K."""
+    if layout in ("interleaved", "ragged L", "all tied"):
+        return (np.arange(lanes) % k).astype(np.int32)
+    if layout == "sorted":
+        return np.sort(rng.randint(0, k, size=lanes)).astype(np.int32)
+    if layout == "one instance":
+        return np.full(lanes, k - 1, np.int32)
+    inst = rng.randint(-1, k, size=lanes).astype(np.int32)
+    inst[::3] = -1
+    if layout == "all parked":
+        inst[:] = -1
+    return inst
+
+
+#: (layout, K, n, lanes): a lane count that is not a multiple of the
+#: window in "ragged L"; ids interleaved over 16 instances leave 16 full
+#: tiles a window; 40 instances mixed with parked lanes leave more tiles
+#: than a window has blocks, so some blocks take two.
+STACKED_LAYOUTS = [("interleaved", 16, 33, 512), ("sorted", 3, 31, 300),
+                   ("one instance", 2, 40, 300), ("mixed parked", 3, 33, 70),
+                   ("all parked", 3, 33, 40), ("ragged L", 5, 20, 300),
+                   ("all tied", 4, 40, 64),
+                   ("many instances", 40, 33, 256)]   # > 24 tiles a window
+
+
+@pytest.mark.parametrize("layout,k,n,lanes", STACKED_LAYOUTS)
+def test_grouped_tiles_equal_the_plain_and_reference_passes(layout, k, n,
+                                                            lanes):
+    from repro_torch.problems.graphs import circulant_graph, full_mask
+    rng = np.random.RandomState(lanes + k)
+    w = -(-n // 32)
+    if layout == "all tied":
+        tables = np.stack([circulant_graph(n, (1, 2 + s)).adj
+                           for s in range(k)])
+        mask = np.broadcast_to(full_mask(n), (lanes, w)).copy()
+    else:
+        tables = random_words(rng, (k, n, w))
+        mask = random_words(rng, (lanes, w))
+    valid = mask & random_words(rng, (lanes, w))
+    valid[1::5] = mask[1::5]
+    inst = stacked_layout(rng, layout, k, lanes)
+    got = stacked_count_stats_tiles(tables, inst, mask, valid)
+    plain = ref.stacked_count_stats_ref(
+        words(tables), torch.from_numpy(inst.copy()), words(mask),
+        words(valid)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    args = [jnp.asarray(x) for x in (tables, inst, mask, valid)]
+    for stages in (1, 2):
+        np.testing.assert_array_equal(got, np.asarray(
+            jops.stacked_count_stats(*args, tile=16, stages=stages,
+                                     interpret=True)))
+    parked = inst < 0
+    assert (got[parked] == [-1, -1, 0, 0]).all()
+    if layout == "all tied":          # full masks: every count ties
+        bits = (valid[:, np.arange(n) // 32] >> (np.arange(n) % 32)) & 1
+        first = np.where(bits.any(1), bits.argmax(1), -1)
+        np.testing.assert_array_equal(got[:, 1], first)
+
+
+@pytest.mark.parametrize("k,lanes", [(1, 256), (16, 256), (4, 1024),
+                                     (16, 4096)])
+def test_a_window_of_interleaved_or_sorted_ids_fills_its_tiles(k, lanes):
+    """Interleaved ids over 16 instances, or sorted ids of runs of 16,
+    leave every tile of a window full: 16 tiles."""
+    for inst in (np.arange(lanes) % k, np.arange(lanes) * k // lanes):
+        for w0 in range(0, lanes, WINDOW):
+            tiles = window_tiles(inst[w0:w0 + WINDOW], k)
+            assert len(tiles) == WINDOW // ROWS
+            assert all(len(rows) == ROWS for _, rows in tiles)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 16, 100, 256, 1000])
+def test_a_window_never_has_more_tiles_than_its_bound(k):
+    """The worst case of the bound: every instance of the window leaves a
+    tile of one row (runs of 16 m + 1 lanes), or every lane its own
+    instance."""
+    d = min(k, WINDOW)
+    runs = [ROWS + 1] * (WINDOW // (ROWS + 1))
+    ids = np.concatenate([np.full(c, i % d) for i, c in enumerate(runs)])
+    ids = np.sort(np.concatenate([ids, np.arange(WINDOW - len(ids)) % d]))
+    for inst in (ids, np.arange(WINDOW) % d):
+        assert len(window_tiles(inst, k)) <= tile_bound(k)
