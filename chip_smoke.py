@@ -10,8 +10,9 @@ Phases (any failure raises and exits non-zero):
      SASS instruction counts (``cuobjdump -sass``) that show each
      redesigned kernel's hardware path: ``HGMMA`` and ``UTMALDG`` for
      ``flash_attention`` (bf16 route), ``BMMA`` and ``POPC`` for
-     ``count_stats``, ``BMMA`` for ``stacked_count_stats``, ``HMMA`` for
-     ``ssd_scan`` (bf16 route);
+     ``count_stats``, ``HMMA`` for ``ssd_scan`` (bf16 route); and ptxas's
+     spill bytes of every kernel function, none allowed but the listed
+     exception (``SPILLS_ALLOWED``);
   2. hold ``count_stats`` bitwise against its plain PyTorch version on
      CUDA tensors (n in {1, 31, 33, 100, 300, 1000} x L in {1, 7, 1024,
      8192}, all-invalid lanes, all-tied circulant degrees) and the
@@ -35,8 +36,7 @@ Phases (any failure raises and exits non-zero):
      {1, 4, 16, 64} x n in {1, 31, 33, 100, 300, 1000} x L in {1, 7, 1024,
      8192}; mixed ids with parked lanes, all lanes parked, ids sorted so
      each instance's lanes lie together, every lane on one instance,
-     all-tied circulant tables; at K = 64 a window holds more tiles than
-     it has blocks);
+     all-tied circulant tables);
   7. the multi-tenant service at full width through ``Solver.serve``:
      1024 lanes, 4 slots of n = 100, 8 requests of both families drained
      to their serial optima; the same first rounds again with the kernel
@@ -51,8 +51,9 @@ Phases (any failure raises and exits non-zero):
      resumes on the CPU to the same optimum;
  10. time ``stacked_count_stats`` and its plain version at the service's
      shape (K=4, n=100, L=1024, its live inputs) and at (K=16, n=300,
-     L=4096) with interleaved and with sorted ids, held to the bytes
-     bound with the popcount-issue bound beside it;
+     L=4096) with interleaved and with sorted ids, held to the
+     popcount-issue bound (its popcounts run on the CUDA cores) with the
+     bytes beside it;
  11. ``popcount_reduce`` and ``masked_row_reduce`` at cell60's shape and a
      sweep, bitwise;
  12. ``flash_attention`` at qwen2-7b's and gemma2-27b's prefill widths
@@ -115,8 +116,9 @@ DRAIN_LANES = 1024
 TWIN = ("vc", "gnp:60:15:7", 64)          # solved on the card and the CPU
 CELL60_LANES = 4096
 STACKED_KS = (1, 4, 16, 64)
-#: Phase 6's id layouts (see ``stacked_case``): the kernel groups lanes by
-#: instance, and these are its best and worst cases.
+#: Phase 6's id layouts (see ``stacked_case``): ids mixed with parked
+#: lanes as the service leaves them, and the extremes of sorted ids, one
+#: instance and every lane parked.
 STACKED_KINDS = ("mixed", "parked", "sorted", "one", "tied")
 #: The service phase: 4 slots of n = 100 on 1024 lanes, 8 requests, so
 #: slots are reused.  Optima from the reference's serial oracle:
@@ -983,34 +985,33 @@ def phase_checkpoints(report, svc):
 # -- phase 10 ---------------------------------------------------------------
 
 def stacked_times(tables, inst, mask, valid, clock_hz, sms):
-    """``stacked_count_stats`` timed on one input.  Its binary products run
-    on the tensor cores, so the bound it is held to is the bytes of
-    reading each input once (the K tables, the ids, masks and valid words)
-    and writing the output once; beside it stands the popcount-issue
-    bound of the same work on the CUDA cores (the popcounts of the valid
-    vertices of every unparked lane), which bounded its first design."""
+    """``stacked_count_stats`` timed on one input; its bound counts the
+    popcounts of the valid vertices of every unparked lane (its popcounts
+    run on the CUDA cores), or the bytes of reading each input once and
+    writing the output once."""
     from repro_torch.kernels import bitset_ops, ref
     from repro_torch.kernels.ref import bit_set
     k, n, w = tables.shape
     lanes = mask.shape[0]
     n_valid = int(bit_set(valid, n)[inst >= 0].sum())
-    popcounts = n_valid * w
     nbytes = 4 * (k * n * w + lanes + 2 * lanes * w + 4 * lanes)
-    popc_ms, _ = bound(popcounts, 0, clock_hz, sms)
-    return measure(
-        "stacked_count_stats",
-        lambda: bitset_ops.stacked_count_stats(tables, inst, mask, valid),
-        lambda: ref.stacked_count_stats_ref(tables, inst, mask, valid), 200,
-        20, *rate_bound(0, 1.0, nbytes), popcounts=popcounts, bytes=nbytes,
-        popc_bound_ms=popc_ms, K=k, n=n, w=w, L=lanes, valid_pairs=n_valid)
+    return timed("stacked_count_stats",
+                 lambda: bitset_ops.stacked_count_stats(tables, inst, mask,
+                                                        valid),
+                 lambda: ref.stacked_count_stats_ref(tables, inst, mask,
+                                                     valid),
+                 n_valid * w, nbytes, clock_hz, sms,
+                 popc_bound_ms=bound(n_valid * w, 0, clock_hz, sms)[0],
+                 bytes_bound_ms=rate_bound(0, 1.0, nbytes)[0], K=k, n=n,
+                 w=w, L=lanes, valid_pairs=n_valid)
 
 
 def phase_stacked_timing(report, live):
     """The kernel at the service's shape (K=4, n=100, w=4, L=1024) on the
     live inputs of the service phase, and at (K=16, n=300, w=10, L=4096)
     with every lane at the root of its instance, the ids interleaved
-    (lane l on instance l mod 16: every 16-lane tile of the lane order
-    holds 16 instances) and sorted (each instance's 256 lanes together)."""
+    (lane l on instance l mod 16, as the service deals lanes over its
+    slots) and sorted (each instance's 256 lanes together)."""
     from repro_torch.convert import words
     from repro_torch.problems.graphs import full_mask
     clock_hz, sms = report["clock_max_sm_hz"], report["sms"]
@@ -1025,22 +1026,22 @@ def phase_stacked_timing(report, live):
                                      sms),
                        inputs="random tables, every lane at its root, ids "
                               "interleaved")
-    grouped = dict(stacked_times(tables, lane // (lanes // k), full, full,
-                                 clock_hz, sms),
-                   inputs="random tables, every lane at its root, ids "
-                          "sorted")
-    for t in (service, interleaved, grouped):
+    in_order = dict(stacked_times(tables, lane // (lanes // k), full, full,
+                                  clock_hz, sms),
+                    inputs="random tables, every lane at its root, ids "
+                           "sorted")
+    for t in (service, interleaved, in_order):
         print(f"phase 10: stacked_count_stats K={t['K']} n={t['n']} "
               f"w={t['w']} L={t['L']} ({t['inputs']}): kernel "
               f"{t['ms'] * 1e3:.2f} us ({t['ms_source']}; events "
               f"{t['ms_events'] * 1e3:.2f} us), plain "
               f"{t['plain_ms'] * 1e3:.1f} us, bound "
-              f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
-              f"{t['bytes']} bytes); popcount issue of the same work "
-              f"{t['popc_bound_ms'] * 1e3:.3f} us ({t['popcounts']} "
-              f"popcounts)", flush=True)
-    report["stacked_timing"] = [service, interleaved, grouped]
-    return service, interleaved, grouped
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}): popcount "
+              f"issue {t['popc_bound_ms'] * 1e3:.3f} us ({t['popcounts']} "
+              f"popcounts), bytes {t['bytes_bound_ms'] * 1e3:.3f} us "
+              f"({t['bytes']} bytes)", flush=True)
+    report["stacked_timing"] = [service, interleaved, in_order]
+    return service, interleaved, in_order
 
 
 # -- phases 11 to 13: the kernel library ------------------------------------
@@ -1485,12 +1486,10 @@ def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
 #: The SASS instructions that show each redesigned kernel's hardware path:
 #: the tensor cores fed by TMA (flash_attention's bf16 route), the tensor
 #: cores' binary product beside the popcounts of the mask counts
-#: (count_stats), the binary product (stacked_count_stats) and the
-#: tensor cores' bf16 product (ssd_scan's bf16 route, mma.sync).  Each
-#: must appear at least once.
+#: (count_stats) and the tensor cores' bf16 product (ssd_scan's bf16
+#: route, mma.sync).  Each must appear at least once.
 SASS_PATHS = {"flash_attention": ("HGMMA", "UTMALDG"),
               "count_stats": ("BMMA", "POPC"),
-              "stacked_count_stats": ("BMMA",),
               "ssd_scan": ("HMMA",)}
 #: An instruction whose opcode is {} (after its address and an optional
 #: predicate), not a modifier of another opcode (BMMA's ".POPC").
@@ -1515,6 +1514,41 @@ def sass_counts(libs):
         print(f"phase 1: SASS of {name}: " + ", ".join(
             f"{op} {c}" for op, c in counts[name].items()), flush=True)
     return counts
+
+
+#: Spill bytes (stores) ptxas may report for a kernel function, by the
+#: name in its mangled symbol; every other function must spill none.
+#: ``ssd_scan``'s bf16 output pass is compiled for two blocks an SM (128
+#: registers a thread) and spills 148 bytes there; for one block an SM it
+#: spills none and took 0.475 ms against 0.358 ms (PERF.md).
+SPILLS_ALLOWED = {"ssd_scan_output_bf16_kernel": 148}
+#: ptxas -v: a function's name, then its stack and spill bytes.
+PTXAS_SPILLS = (r"Function properties for (\S+)\s+\d+ bytes stack frame, "
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def check_spills(libs):
+    """{kernel: {function: spill store bytes}} from each library's ptxas
+    report (``<lib>.log``); fails where a function spills more than
+    ``SPILLS_ALLOWED`` lets it (0 unless listed)."""
+    spills = {}
+    for name, lib in libs.items():
+        text = pathlib.Path(str(lib) + ".log").read_text()
+        found = re.findall(PTXAS_SPILLS, text)
+        check(found, f"{name}: no spill report in its ptxas log")
+        spills[name] = {}
+        for fn, stores, loads in found:
+            allowed = max([b for part, b in SPILLS_ALLOWED.items()
+                           if part in fn] or [0])
+            check(int(stores) <= allowed and int(loads) <= allowed,
+                  f"{name}: {fn} spills {stores} / {loads} bytes (allowed "
+                  f"{allowed})")
+            if int(stores) or int(loads):
+                spills[name][fn] = int(stores)
+        print(f"phase 1: ptxas spills of {name}: " + (", ".join(
+            f"{fn} {b} bytes (allowed)" for fn, b in spills[name].items())
+            or "none"), flush=True)
+    return spills
 
 
 def main() -> int:
@@ -1542,8 +1576,10 @@ def main() -> int:
               f"{pathlib.Path(str(lib) + '.log').read_text().strip()}",
               flush=True)
     sass = sass_counts(dict(zip(KERNELS, libs)))
+    spills = check_spills(dict(zip(KERNELS, libs)))
 
     report = dict(device=kind, card=card, build_s=build_s, sass=sass,
+                  spills=spills,
                   parity={k: dict(compared=0, mismatches=0, max_abs_err=0)
                           for k in KERNELS},
                   launches=dict.fromkeys(KERNELS, 0), solves=[])
@@ -1556,7 +1592,7 @@ def main() -> int:
     svc, service_inputs = phase_service_steps(report)
     phase_service_twin(report)
     phase_checkpoints(report, svc)
-    service, interleaved, grouped = phase_stacked_timing(report,
+    service, interleaved, in_order = phase_stacked_timing(report,
                                                          service_inputs)
     popcount, row_reduce = phase_bitset_library(report)
     attention = phase_attention(report)
@@ -1564,7 +1600,7 @@ def main() -> int:
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small]),
         kernel_entry("stacked_count_stats", report, service,
-                     [service, interleaved, grouped]),
+                     [service, interleaved, in_order]),
         kernel_entry("popcount_reduce", report, popcount, [popcount]),
         kernel_entry("masked_row_reduce", report, row_reduce, [row_reduce]),
         kernel_entry("flash_attention", report, attention[0], attention,

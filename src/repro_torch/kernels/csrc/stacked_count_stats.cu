@@ -18,354 +18,110 @@
 // lie outside the contract (the two Pallas layouts disagree on them); this
 // kernel parks such a lane too, so it never reads outside the tables.
 //
-// What bounds it.  count[l, v] is an AND-popcount matrix product of each
-// lane's mask bits by its own instance's table bits, so the tensor cores'
-// binary product (mma.sync m16n8k256 .and.popc, BMMA in SASS) computes it,
-// as in count_stats.cu; the least time is then the bytes: the K tables
-// once, the ids, masks and valid words once, the output once (601,600
-// bytes at K = 16, n = 300, w = 10, L = 4096: 0.18 us at 3.35 TB/s),
-// under a launch.  The same work as popcounts on the CUDA cores (16 per
-// clock per SM) takes 2.94 us at that shape, which bounded the first,
-// one-warp-per-lane design of this file.
+// What bounds it.  As for count_stats: L * n_valid * w AND + POPC + ADD
+// word operations against tables of K * n * w words that stay in L2
+// (4 slots of n = 100 are 6.4 KB; 16 of n = 300 are 192 KB) and about
+// 8 * L * w bytes of masks, so it is bound by the popcount issue rate
+// (16 per clock per SM on compute capability 9.0, the CUDA C++
+// Programming Guide's throughput table) unless most lanes are parked.
 //
-// Design.  The binary product's B operand (8 vertices x 256 bits) is
-// shared by the 16 rows of the A tile, so the 16 lanes of a tile must
-// read one table; the service does not keep the lanes of an instance
-// together (idle lanes are dealt round-robin over the slots, a steal hands
-// a donor's instance to any lane, and the lane order cannot change
-// without growing another tree).  So the kernel groups lanes itself:
-//   1. The lanes are cut into windows of kWindow consecutive lanes, one
-//      lane per thread.  Every block of a window groups the window's lanes
-//      by instance in shared memory: the lanes of a warp with one id find
-//      each other with __match_any_sync, and their leader finds or claims
-//      the id's bin in an open-addressing table of 2 kWindow bins
-//      (atomicCAS on the bin's id, linear probing) and writes the group's
-//      size into the bin's count for its warp.  Parked lanes and positions
-//      past L join no bin.
-//   2. A lane's row is its rank by position among its id's lanes (the
-//      counts of the warps before it, then its rank in its warp).  Each
-//      id's run is cut into tiles of 16 rows, the last one partly filled,
-//      and a block-wide scan numbers the tiles in the order of the runs'
-//      first lanes.  The blocks of a window group independently, and the
-//      order of their atomics differs, so only numbers that do not depend
-//      on it (counts, ranks, first lanes) decide the tiles: every block
-//      finds the same ones.  A window has a block for every tile it can
-//      hold, (kWindow + 15 min(K, kWindow)) / 16, up to kMaxBlocks; block
-//      y takes tiles y, y + gridDim.y, ...; a block without a tile leaves
-//      after the grouping.
-//   3. The block runs count_stats.cu's body on its tile against
-//      tables + id * n * w: 8 warps split the 8-vertex tiles, each warp
-//      holds the 16 rows' mask words as A fragments and reads table words
-//      as B fragments from global memory, rows past the run read as 0,
-//      and the 64-bit key (count + 1) << 32 | (0xFFFFFFFF - v) is reduced
-//      over the quad and the warps.
-//   4. Each row's result goes back to its own lane.
-// The cost of the grouping is at most one partly filled tile per
-// instance in a window, a few shared-memory operations per lane, and the
-// masks' loads waiting on it.  Every block of a window redoes the
-// grouping, so it has to be cheap: a table of bins, not a ranking of the
-// window's lanes (which cost more than the products), and the masks are
-// read from global memory as in count_stats.cu (staging the window's rows
-// in shared memory in every block cost more than it saved).  A lane's
-// result depends only on its own row, so the grouping changes no bit of
-// the output.
-// kWindow = 256 lanes: at K = 16 with interleaved ids (lane l on instance
-// l mod 16) that is the least window whose tiles are full; 128 gives
-// more, emptier tiles (kernel_times.py --variants times both; PERF.md
-// records the choice).
+// Design.  count_stats.cu's design with a per-lane table base: one warp
+// per lane, so no cross-block combine and no atomics; the lane's mask and
+// valid words sit in registers (loops unrolled to MAXW, a compile-time
+// bound on w); thread t takes vertices v = 32 i + t and keeps the best
+// 64-bit key (count + 1) << 32 | (0xFFFFFFFF - v), so a max over keys is a
+// max over counts with the smallest id winning ties; a shuffle reduction
+// over the warp makes the result deterministic.  The base pointer
+// tables + inst[l] * n * w takes the place of the scalar-prefetch index
+// map; a parked lane's warp leaves before it loads anything but its id.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;                // warps per block, splitting vertices
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16;                // the product's M: rows of a tile
-constexpr int kWindow = 256;             // lanes grouped together
-// Blocks of a window, at most: every tile a window can hold up to one and
-// a half times its full tiles.  A window of the service's K = 4 slots
-// holds up to 19 tiles, and each gets a block; a window of 16 instances
-// can hold 31, and launching a block for each cost more in idle blocks
-// than the second tile some blocks take where there are more than 24
-// (kernel_times.py --variants times 16, 24 and no cap).
-constexpr int kMaxBlocks = 24;
-constexpr int kBins = 2 * kWindow;       // the table is at most half full
-static_assert(kWindow >= 32 && kWindow <= kThreads &&
-                  (kWindow & (kWindow - 1)) == 0,
-              "a window is a power of two of whole warps of one block");
-constexpr int log2i(int v) { return v <= 1 ? 0 : 1 + log2i(v / 2); }
-constexpr int kBinShift = 32 - log2i(kBins);  // hash to the top bits
-constexpr int kEmpty = -1;
+constexpr int kWarpsPerBlock = 8;
 
-__device__ __forceinline__ void bmma_and_popc(int (&d)[4], const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned long long key_of(int c, int v) {
-  return ((unsigned long long)(c + 1) << 32) | (0xFFFFFFFFu - (uint32_t)v);
-}
-
-__device__ __forceinline__ unsigned long long max_u64(unsigned long long a,
-                                                      unsigned long long b) {
-  return a > b ? a : b;
-}
-
-// Inclusive sum of v over the block's threads in order.  Every thread of
-// the block calls it.
-__device__ __forceinline__ int block_scan(int v, int* s_warp) {
-  const int li = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int u = __shfl_up_sync(0xFFFFFFFFu, v, off);
-    if (li >= off) v += u;
-  }
-  if (li == 31) s_warp[warp] = v;
-  __syncthreads();
-  for (int p = 0; p < warp; ++p) v += s_warp[p];
-  __syncthreads();  // s_warp is free again
-  return v;
-}
-
-// count_stats.cu's body on one tile: rows[r] is the lane of row r (or -1),
-// all on instance `id`; each row's result goes to its lane.  Every thread
-// of the block calls it.
-template <int KS>
-__device__ __forceinline__ void tile_body(
-    const uint32_t* __restrict__ tables, const uint32_t* __restrict__ mask,
-    const uint32_t* __restrict__ valid, int32_t* __restrict__ out, int n,
-    int w, const int* rows, int id, unsigned long long (*s_key)[kRows],
-    int (*s_sum)[kRows]) {
-  const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
-  const int g = t >> 2, q = t & 3;
-  const int la = rows[g], lb = rows[g + 8];  // the thread's two lanes
-  const bool ina = la >= 0, inb = lb >= 0;
-  const uint32_t* table = tables + (size_t)id * n * w;
-
-  uint32_t a[KS][4];
-  int mcount_a = 0, mcount_b = 0;
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    const int k0 = 8 * s + q, k1 = 8 * s + 4 + q;
-    a[s][0] = ina && k0 < w ? mask[(size_t)la * w + k0] : 0u;
-    a[s][1] = inb && k0 < w ? mask[(size_t)lb * w + k0] : 0u;
-    a[s][2] = ina && k1 < w ? mask[(size_t)la * w + k1] : 0u;
-    a[s][3] = inb && k1 < w ? mask[(size_t)lb * w + k1] : 0u;
-    mcount_a += __popc(a[s][0]) + __popc(a[s][2]);
-    mcount_b += __popc(a[s][1]) + __popc(a[s][3]);
-  }
-
-  int best_a = -1, arg_a = -1, sum_a = 0;
-  int best_b = -1, arg_b = -1, sum_b = 0;
-  const int vtiles = (n + 7) >> 3;
-  for (int tile = warp; tile < vtiles; tile += kWarps) {
-    const int v0 = 8 * tile;           // this warp's 8 vertices
-    const int i = tile >> 2;           // their valid word
-    const int vrow = v0 + g;           // the vertex whose B fragment t loads
-    const uint32_t* row = table + (size_t)vrow * w;
-    int d[4] = {0, 0, 0, 0};
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      const int k0 = 8 * s + q, k1 = 8 * s + 4 + q;
-      const uint32_t b0 = vrow < n && k0 < w ? row[k0] : 0u;
-      const uint32_t b1 = vrow < n && k1 < w ? row[k1] : 0u;
-      bmma_and_popc(d, a[s], b0, b1);
-    }
-    // The accumulator's vertices: v0 + 2q and v0 + 2q + 1.
-    const int shift = 8 * (tile & 3) + 2 * q;
-    const uint32_t va = ina ? valid[(size_t)la * w + i] >> shift : 0u;
-    const uint32_t vb = inb ? valid[(size_t)lb * w + i] >> shift : 0u;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int v = v0 + 2 * q + c;
-      if (v < n) {
-        if ((va >> c) & 1u) {
-          sum_a += d[c];
-          if (d[c] > best_a) { best_a = d[c]; arg_a = v; }
-        }
-        if ((vb >> c) & 1u) {
-          sum_b += d[2 + c];
-          if (d[2 + c] > best_b) { best_b = d[2 + c]; arg_b = v; }
-        }
-      }
-    }
-  }
-
-  // Reduce over the quad (q = 0..3) that shares the two rows.
-  unsigned long long key_a = best_a < 0 ? 0ull : key_of(best_a, arg_a);
-  unsigned long long key_b = best_b < 0 ? 0ull : key_of(best_b, arg_b);
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    key_a = max_u64(key_a, __shfl_xor_sync(0xFFFFFFFFu, key_a, off));
-    key_b = max_u64(key_b, __shfl_xor_sync(0xFFFFFFFFu, key_b, off));
-    sum_a += __shfl_xor_sync(0xFFFFFFFFu, sum_a, off);
-    sum_b += __shfl_xor_sync(0xFFFFFFFFu, sum_b, off);
-    mcount_a += __shfl_xor_sync(0xFFFFFFFFu, mcount_a, off);
-    mcount_b += __shfl_xor_sync(0xFFFFFFFFu, mcount_b, off);
-  }
-  if (q == 0) {
-    s_key[warp][g] = key_a;
-    s_key[warp][g + 8] = key_b;
-    s_sum[warp][g] = sum_a;
-    s_sum[warp][g + 8] = sum_b;
-  }
-  __syncthreads();
-
-  // Warp 0 combines the warps' partials and writes each row to its lane;
-  // its quad leader q == 0 holds the row's mask count.
-  if (warp == 0 && q == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = g + 8 * h;
-      const int lane = h == 0 ? la : lb;
-      if (lane < 0) continue;
-      unsigned long long key = 0ull;
-      int sum = 0;
-#pragma unroll
-      for (int p = 0; p < kWarps; ++p) {
-        key = max_u64(key, s_key[p][row]);
-        sum += s_sum[p][row];
-      }
-      const int best = (int)(key >> 32) - 1;
-      int32_t* o = out + (size_t)lane * 4;
-      o[0] = best;
-      o[1] = best < 0 ? -1 : (int)(0xFFFFFFFFu - (uint32_t)key);
-      o[2] = sum;
-      o[3] = h == 0 ? mcount_a : mcount_b;
-    }
-  }
-}
-
-// KS = number of 256-bit k-steps, ceil(w / 8).
-template <int KS>
-__global__ void __launch_bounds__(kThreads)
+template <int MAXW>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
 stacked_count_stats_kernel(const uint32_t* __restrict__ tables,
                            const int32_t* __restrict__ inst,
                            const uint32_t* __restrict__ mask,
                            const uint32_t* __restrict__ valid,
                            int32_t* __restrict__ out, int k, int n, int w,
                            int lanes) {
-  __shared__ int s_bin_id[kBins];     // each bin's instance, or kEmpty
-  __shared__ int s_bin_tile[kBins];   // its instance's first tile
-  __shared__ int s_warp_count[kWindow / 32][kBins];  // its lanes per warp
-  __shared__ int s_scan[kWarps];
-  __shared__ int s_rows[kRows];       // this tile's lanes, or -1
-  __shared__ int s_tiles, s_tile_id;
-  __shared__ unsigned long long s_key[kWarps][kRows];
-  __shared__ int s_sum[kWarps][kRows];
+  const int lane = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int t = threadIdx.x & 31;
+  if (lane >= lanes) return;  // the whole warp leaves together
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int t = tid & 31;
-  const int w0 = blockIdx.x * kWindow;
-  const int slot = blockIdx.y;
-
-  // 1. The lane's id (-1: parked or past L); the first block of the
-  //    window writes the parked lanes' rows.
-  for (int b = tid; b < kBins; b += kThreads) s_bin_id[b] = kEmpty;
-  for (int i = tid; i < (kWindow / 32) * kBins; i += kThreads) {
-    (&s_warp_count[0][0])[i] = 0;
-  }
-  if (tid < kRows) s_rows[tid] = -1;
-  int my = -1;
-  if (tid < kWindow) {
-    const int l = w0 + tid;
-    if (l < lanes) {
-      const int id = inst[l];
-      if (id >= 0 && id < k) {
-        my = id;
-      } else if (slot == 0) {
-        int32_t* o = out + (size_t)l * 4;
-        o[0] = -1;
-        o[1] = -1;
-        o[2] = 0;
-        o[3] = 0;
-      }
+  const int id = inst[lane];
+  if (id < 0 || id >= k) {    // parked: the whole warp takes this branch
+    if (t == 0) {
+      int32_t* o = out + (size_t)lane * 4;
+      o[0] = -1;
+      o[1] = -1;
+      o[2] = 0;
+      o[3] = 0;
     }
+    return;
   }
-  __syncthreads();
+  const uint32_t* table = tables + (size_t)id * n * w;
 
-  //    The bins: the leader of a warp's lanes of one id finds (or claims)
-  //    the id's bin and records the group's size for its warp.
-  int bin = -1;
-  unsigned same = 0u;
-  if (tid < kWindow) {  // whole warps
-    same = __match_any_sync(0xFFFFFFFFu, my);
-    const int leader = __ffs(same) - 1;
-    if (my >= 0 && t == leader) {
-      int b = (int)(((unsigned)my * 2654435761u) >> kBinShift);
-      for (;;) {
-        const int prev = atomicCAS(&s_bin_id[b], kEmpty, my);
-        if (prev == kEmpty || prev == my) break;
-        b = (b + 1) & (kBins - 1);
-      }
-      bin = b;
-      s_warp_count[warp][b] = __popc(same);
-    }
-    bin = __shfl_sync(same, bin, leader);
-  }
-  __syncthreads();
-
-  // 2. A lane's row in its instance's run is its rank by position; the
-  //    runs are cut into tiles of 16 rows, numbered in the order of the
-  //    runs' first positions (the lane of rank 0 numbers its run's tiles).
-  //    Which bin an id got depends on the order of the atomics, but none
-  //    of these numbers does, so every block of the window finds the same
-  //    tiles.
-  int place = 0, tiles_here = 0;
-  if (bin >= 0) {
-    int count = 0;
+  uint32_t m[MAXW], vw[MAXW];
 #pragma unroll
-    for (int p = 0; p < kWindow / 32; ++p) {
-      const int c = s_warp_count[p][bin];
-      place += p < warp ? c : 0;
-      count += c;
-    }
-    place += __popc(same & ((1u << t) - 1u));
-    if (place == 0) tiles_here = (count + kRows - 1) / kRows;
+  for (int j = 0; j < MAXW; ++j) {
+    m[j] = j < w ? mask[(size_t)lane * w + j] : 0u;
+    vw[j] = j < w ? valid[(size_t)lane * w + j] : 0u;
   }
-  const int upto = block_scan(tiles_here, s_scan);
-  if (tiles_here > 0) s_bin_tile[bin] = upto - tiles_here;
-  if (tid == kThreads - 1) s_tiles = upto;
-  __syncthreads();
 
-  // 3. The block's tiles, blockIdx.y + gridDim.y i, each through
-  //    count_stats.cu's body; the rows' results go back to their lanes.
-  for (int tile = slot; tile < s_tiles; tile += gridDim.y) {
-    if (bin >= 0 && s_bin_tile[bin] + place / kRows == tile) {
-      s_rows[place % kRows] = w0 + tid;
-      if (place % kRows == 0) s_tile_id = my;
+  unsigned long long key = 0ull;  // decodes to (best = -1, arg = -1)
+  int sum = 0;
+#pragma unroll
+  for (int i = 0; i < MAXW; ++i) {
+    const int v = i * 32 + t;
+    if (i < w && v < n && ((vw[i] >> t) & 1u)) {
+      const uint32_t* row = table + (size_t)v * w;
+      int c = 0;
+#pragma unroll
+      for (int j = 0; j < MAXW; ++j) {
+        if (j < w) c += __popc(row[j] & m[j]);
+      }
+      sum += c;
+      const unsigned long long cand =
+          ((unsigned long long)(c + 1) << 32) | (0xFFFFFFFFu - (uint32_t)v);
+      key = cand > key ? cand : key;
     }
-    __syncthreads();
-    tile_body<KS>(tables, mask, valid, out, n, w, s_rows, s_tile_id, s_key,
-                  s_sum);
-    if (tid < kRows) s_rows[tid] = -1;  // read before the body's barrier
-    __syncthreads();                    // the partials have been combined
+  }
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xFFFFFFFFu, key, off);
+    key = other > key ? other : key;
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, off);
+  }
+
+  if (t == 0) {
+    int mcount = 0;
+#pragma unroll
+    for (int j = 0; j < MAXW; ++j) mcount += __popc(m[j]);
+    const int best = (int)(key >> 32) - 1;
+    const int arg = best < 0 ? -1 : (int)(0xFFFFFFFFu - (uint32_t)key);
+    int32_t* o = out + (size_t)lane * 4;
+    o[0] = best;
+    o[1] = arg;
+    o[2] = sum;
+    o[3] = mcount;
   }
 }
 
-template <int KS>
-int launch(const uint32_t* tables, const int32_t* inst,
-           const uint32_t* mask, const uint32_t* valid, int32_t* out, int k,
-           int n, int w, int lanes, cudaStream_t stream) {
-  const int windows = (lanes + kWindow - 1) / kWindow;
-  // A block for every tile a window can hold, up to kMaxBlocks: the tiles
-  // of d <= min(K, kWindow) instances number at most
-  // sum ceil(c_i / 16) <= (kWindow + 15 d) / 16.
-  const int d = k < kWindow ? k : kWindow;
-  const int bound = (kWindow + (kRows - 1) * d) / kRows;
-  const int blocks = bound < kMaxBlocks ? bound : kMaxBlocks;
-  stacked_count_stats_kernel<KS>
-      <<<dim3(windows, blocks), kThreads, 0, stream>>>(tables, inst, mask,
-                                                       valid, out, k, n, w,
-                                                       lanes);
-  return (int)cudaGetLastError();
+template <int MAXW>
+void launch(const uint32_t* tables, const int32_t* inst,
+            const uint32_t* mask, const uint32_t* valid, int32_t* out, int k,
+            int n, int w, int lanes, cudaStream_t stream) {
+  const int blocks = (lanes + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  stacked_count_stats_kernel<MAXW>
+      <<<blocks, kWarpsPerBlock * 32, 0, stream>>>(tables, inst, mask, valid,
+                                                   out, k, n, w, lanes);
 }
 
 }  // namespace
@@ -386,10 +142,16 @@ extern "C" int stacked_count_stats_launch(const void* tables,
   if (k < 1 || n < 1 || w < 1 || lanes < 1 || w > 32 || n > 32 * w) {
     return (int)cudaErrorInvalidValue;
   }
-  switch ((w + 7) / 8) {
-    case 1: return launch<1>(tb, in, mk, vd, o, k, n, w, lanes, s);
-    case 2: return launch<2>(tb, in, mk, vd, o, k, n, w, lanes, s);
-    case 3: return launch<3>(tb, in, mk, vd, o, k, n, w, lanes, s);
-    default: return launch<4>(tb, in, mk, vd, o, k, n, w, lanes, s);
+  if (w <= 2) {
+    launch<2>(tb, in, mk, vd, o, k, n, w, lanes, s);
+  } else if (w <= 4) {
+    launch<4>(tb, in, mk, vd, o, k, n, w, lanes, s);
+  } else if (w <= 8) {
+    launch<8>(tb, in, mk, vd, o, k, n, w, lanes, s);
+  } else if (w <= 16) {
+    launch<16>(tb, in, mk, vd, o, k, n, w, lanes, s);
+  } else {
+    launch<32>(tb, in, mk, vd, o, k, n, w, lanes, s);
   }
+  return (int)cudaGetLastError();
 }

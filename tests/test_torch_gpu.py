@@ -120,9 +120,8 @@ def test_solve_on_the_card_equals_the_cpu(family, spec, lanes):
 @pytest.mark.parametrize("k,n", [(1, 33), (4, 100), (16, 300), (64, 100)])
 def test_stacked_kernel_equals_plain_version(k, n):
     """Ids mixed with parked lanes, all parked, sorted (each instance's
-    lanes together) and all on one instance: the kernel groups lanes by
-    instance itself, so every layout must give the plain version's bits.
-    At K = 64 mixed ids leave more tiles in a window than it has blocks."""
+    lanes together) and all on one instance: every layout must give the
+    plain version's bits, K = 64 included."""
     need_card()
     rng = np.random.RandomState(k * n)
     w = num_words(n)

@@ -14,19 +14,16 @@ vertices and a 64-bit key reduction, written out in numpy.  It must be
 bitwise equal to the port's plain version and to the reference's jnp and
 Pallas (interpret mode) versions, for n in {1, 31, 33, 300} and w up to 32.
 
-``stacked_count_stats``: the kernel's grouping of lanes by instance
-(``csrc/stacked_count_stats.cu``): windows of 256 lanes, each instance's
-lanes ranked by position (the counts of the warps before a lane, then its
-rank among the equal ids of its warp), runs cut into 16-row tiles numbered
-in the order of the runs' first positions, no more tiles than the bound
-the launcher sizes the grid by, a window's blocks (up to 24) taking every
-tile once, and count_stats' tiles above on each, every result sent back
-to its lane.  It must be bitwise equal to the port's plain version and to
-the reference's Pallas kernel at ``stages`` 1 and 2 (interpret mode) on
-interleaved, sorted, one-instance, partly parked and all-parked ids, a
-lane count that is not a multiple of the window, all-tied tables, and
-more instances than a window has blocks.  Ids at or above K lie outside
-the contract and are not drawn.
+``stacked_count_stats`` (``csrc/stacked_count_stats.cu``): a warp per
+lane against its own instance's table, thread t taking vertices 32 i + t
+for i below the template bound on w that the launcher picks, the best
+64-bit key of each thread reduced over the warp, a parked lane (id < 0)
+writing (-1, -1, 0, 0), written out in numpy.  It must be bitwise equal
+to the port's plain version and to the reference's Pallas kernel at
+``stages`` 1 and 2 (interpret mode) on interleaved, sorted, one-instance,
+partly parked and all-parked ids, all-tied tables and more instances than
+a warp has threads, and cover every vertex at each template bound.  Ids
+at or above K lie outside the contract and are not drawn.
 """
 
 import jax.numpy as jnp
@@ -244,64 +241,42 @@ def test_count_stats_tiles_equal_the_plain_and_reference_passes(n, w):
     assert (got[2, :2] == [0, 0]).all()         # smallest valid id wins
 
 
-# -- stacked_count_stats: lanes grouped by instance --------------------------
+# -- stacked_count_stats: a warp per lane ----------------------------------
 
-#: The kernel's window of lanes grouped together, the rows of a tile and
-#: the most blocks a window launches.
-WINDOW = 256
-ROWS = 16
-MAX_BLOCKS = 24
+def template_words(w):
+    """The launcher's compile-time bound on w (MAXW)."""
+    return next(m for m in (2, 4, 8, 16, 32) if w <= m)
 
 
-def tile_bound(k):
-    """The most tiles a window of K instances can hold."""
-    return (WINDOW + (ROWS - 1) * min(k, WINDOW)) // ROWS
-
-
-def window_tiles(ids, k):
-    """The tiles of one window, as the kernel numbers them: a list of
-    (instance, window positions of its rows).  ``ids`` are the window's
-    ids (fewer than WINDOW in the last window); ids < 0 or >= K join no
-    tile."""
-    live = [(pos, int(i)) for pos, i in enumerate(ids) if 0 <= i < k]
-    firsts = {}
-    for pos, i in live:
-        firsts.setdefault(i, pos)
-    tiles = []
-    for i in sorted(firsts, key=firsts.get):       # by first position
-        run = [pos for pos, j in live if j == i]  # ranked by position
-        # The kernel's rank: the counts of the warps before the lane, then
-        # its rank among the equal ids of its own warp.
-        for place, pos in enumerate(run):
-            warp, lane = divmod(pos, 32)
-            before = sum(1 for p, j in live if j == i and p // 32 < warp)
-            mine = sum(1 for p, j in live if j == i and p // 32 == warp
-                       and p % 32 < lane)
-            assert before + mine == place
-        tiles += [(i, run[r:r + ROWS]) for r in range(0, len(run), ROWS)]
-    return tiles
-
-
-def stacked_count_stats_tiles(tables, inst, mask, valid):
-    """``stacked_count_stats`` as the CUDA kernel schedules it: returns
+def stacked_count_stats_warps(tables, inst, mask, valid):
+    """``stacked_count_stats`` as the CUDA kernel computes it: returns
     int32[L, 4]."""
-    k = tables.shape[0]
+    k, n, w = tables.shape
+    maxw = template_words(w)
     lanes = len(inst)
-    out = np.full((lanes, 4), -7, np.int64)        # every lane is written
-    out[(inst < 0) | (inst >= k)] = [-1, -1, 0, 0]
-    for w0 in range(0, lanes, WINDOW):
-        tiles = window_tiles(inst[w0:w0 + WINDOW], k)
-        assert len(tiles) <= tile_bound(k)
-        # Block y of the window takes tiles y, y + blocks, ...: each once.
-        blocks = min(tile_bound(k), MAX_BLOCKS)
-        taken = sorted(t for y in range(blocks)
-                       for t in range(y, len(tiles), blocks))
-        assert taken == list(range(len(tiles)))
-        for i, rows in tiles:
-            assert 1 <= len(rows) <= ROWS
-            lanes_ = [w0 + pos for pos in rows]
-            out[lanes_] = count_stats_tiles(tables[i], mask[lanes_],
-                                            valid[lanes_])
+    out = np.zeros((lanes, 4), np.int64)
+    v = np.arange(n)
+    for lane in range(lanes):
+        i = inst[lane]
+        if i < 0 or i >= k:                     # parked: reads no table
+            out[lane] = [-1, -1, 0, 0]
+            continue
+        counts = popcount(tables[i] & mask[lane][None]).sum(axis=1)
+        bits = (valid[lane][v // 32] >> (v % 32)) & 1
+        # Thread t of the warp takes vertices 32 j + t, j < min(w, MAXW).
+        keys = np.zeros(32, np.uint64)
+        sums = np.zeros(32, np.int64)
+        for t in range(32):
+            for j in range(maxw):
+                u = 32 * j + t
+                if j < w and u < n and bits[u]:
+                    sums[t] += counts[u]
+                    cand = (int(counts[u]) + 1) << 32 | (0xFFFFFFFF - u)
+                    keys[t] = max(int(keys[t]), cand)
+        key = int(keys.max())                   # the shuffle reduction
+        best = (key >> 32) - 1
+        out[lane] = [best, -1 if best < 0 else 0xFFFFFFFF - (key & 0xFFFFFFFF),
+                     sums.sum(), popcount(mask[lane]).sum()]
     return out.astype(np.int32)
 
 
@@ -320,20 +295,18 @@ def stacked_layout(rng, layout, k, lanes):
     return inst
 
 
-#: (layout, K, n, lanes): a lane count that is not a multiple of the
-#: window in "ragged L"; ids interleaved over 16 instances leave 16 full
-#: tiles a window; 40 instances mixed with parked lanes leave more tiles
-#: than a window has blocks, so some blocks take two.
+#: (layout, K, n, lanes): the id layouts the service and phase 6 of
+#: ``chip_smoke.py`` hand the kernel; n = 33 and 40 take two words.
 STACKED_LAYOUTS = [("interleaved", 16, 33, 512), ("sorted", 3, 31, 300),
                    ("one instance", 2, 40, 300), ("mixed parked", 3, 33, 70),
                    ("all parked", 3, 33, 40), ("ragged L", 5, 20, 300),
                    ("all tied", 4, 40, 64),
-                   ("many instances", 40, 33, 256)]   # > 24 tiles a window
+                   ("many instances", 40, 33, 256)]
 
 
 @pytest.mark.parametrize("layout,k,n,lanes", STACKED_LAYOUTS)
-def test_grouped_tiles_equal_the_plain_and_reference_passes(layout, k, n,
-                                                            lanes):
+def test_lane_warps_equal_the_plain_and_reference_passes(layout, k, n,
+                                                         lanes):
     from repro_torch.problems.graphs import circulant_graph, full_mask
     rng = np.random.RandomState(lanes + k)
     w = -(-n // 32)
@@ -347,7 +320,7 @@ def test_grouped_tiles_equal_the_plain_and_reference_passes(layout, k, n,
     valid = mask & random_words(rng, (lanes, w))
     valid[1::5] = mask[1::5]
     inst = stacked_layout(rng, layout, k, lanes)
-    got = stacked_count_stats_tiles(tables, inst, mask, valid)
+    got = stacked_count_stats_warps(tables, inst, mask, valid)
     plain = ref.stacked_count_stats_ref(
         words(tables), torch.from_numpy(inst.copy()), words(mask),
         words(valid)).numpy()
@@ -365,26 +338,22 @@ def test_grouped_tiles_equal_the_plain_and_reference_passes(layout, k, n,
         np.testing.assert_array_equal(got[:, 1], first)
 
 
-@pytest.mark.parametrize("k,lanes", [(1, 256), (16, 256), (4, 1024),
-                                     (16, 4096)])
-def test_a_window_of_interleaved_or_sorted_ids_fills_its_tiles(k, lanes):
-    """Interleaved ids over 16 instances, or sorted ids of runs of 16,
-    leave every tile of a window full: 16 tiles."""
-    for inst in (np.arange(lanes) % k, np.arange(lanes) * k // lanes):
-        for w0 in range(0, lanes, WINDOW):
-            tiles = window_tiles(inst[w0:w0 + WINDOW], k)
-            assert len(tiles) == WINDOW // ROWS
-            assert all(len(rows) == ROWS for _, rows in tiles)
-
-
-@pytest.mark.parametrize("k", [1, 2, 4, 16, 100, 256, 1000])
-def test_a_window_never_has_more_tiles_than_its_bound(k):
-    """The worst case of the bound: every instance of the window leaves a
-    tile of one row (runs of 16 m + 1 lanes), or every lane its own
-    instance."""
-    d = min(k, WINDOW)
-    runs = [ROWS + 1] * (WINDOW // (ROWS + 1))
-    ids = np.concatenate([np.full(c, i % d) for i, c in enumerate(runs)])
-    ids = np.sort(np.concatenate([ids, np.arange(WINDOW - len(ids)) % d]))
-    for inst in (ids, np.arange(WINDOW) % d):
-        assert len(window_tiles(inst, k)) <= tile_bound(k)
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32])
+def test_lane_warps_cover_every_vertex_at_each_template_bound(w):
+    """n = 32 w, the most a row of w words holds, with every vertex valid
+    and the last one the only maximum: the threads' vertices 32 j + t,
+    j < min(w, MAXW), must reach it."""
+    rng = np.random.RandomState(w)
+    k, n, lanes = 3, 32 * w, 9
+    tables = random_words(rng, (k, n, w)) & np.uint32(0x0F0F0F0F)
+    tables[:, n - 1] = 0xFFFFFFFF
+    mask = np.full((lanes, w), 0xFFFFFFFF, np.uint32)
+    valid = mask.copy()
+    inst = (np.arange(lanes) % (k + 1) - 1).astype(np.int32)  # -1 parked
+    got = stacked_count_stats_warps(tables, inst, mask, valid)
+    plain = ref.stacked_count_stats_ref(
+        words(tables), torch.from_numpy(inst), words(mask),
+        words(valid)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    live = inst >= 0
+    assert (got[live, 1] == n - 1).all() and (got[live, 0] == n).all()
