@@ -10,13 +10,13 @@ Phases (any failure raises and exits non-zero):
      SASS instruction counts (``cuobjdump -sass``) that show each
      redesigned kernel's hardware path: ``HGMMA`` and ``UTMALDG`` for
      ``flash_attention`` (bf16 route), ``BMMA`` and ``POPC`` for
-     ``count_stats``, ``HMMA`` for ``ssd_scan`` (bf16 route); and ptxas's
-     spill bytes of every kernel function, none allowed but the listed
-     exception (``SPILLS_ALLOWED``);
+     ``count_stats``, ``REDUX`` for ``masked_row_reduce``, ``HMMA`` for
+     ``ssd_scan`` (bf16 route); and ptxas's spill bytes of every kernel
+     function, none allowed but the listed exception (``SPILLS_ALLOWED``);
   2. hold ``count_stats`` bitwise against its plain PyTorch version on
-     CUDA tensors (n in {1, 31, 33, 100, 300, 1000} x L in {1, 7, 1024,
-     8192}, all-invalid lanes, all-tied circulant degrees) and the
-     ``degree_stats`` / ``domination_stats`` bindings;
+     CUDA tensors (n in {1, 31, 33, 100, 300, 1000, 1025, 1500} x L in
+     {1, 7, 1024, 8192}, all-invalid lanes, all-tied circulant degrees)
+     and the ``degree_stats`` / ``domination_stats`` bindings;
   3. drain ``vc gnp:100:10:7`` and ``ds gnp:60:10:5`` at 1024 lanes
      through ``Solver.solve`` and check the optima (69, 11); run one
      drained solve on the card and on the CPU and require identical
@@ -33,10 +33,10 @@ Phases (any failure raises and exits non-zero):
      to: its binary products run on the tensor cores) and, beside it,
      the popcount issue of the same work on the CUDA cores;
   6. hold ``stacked_count_stats`` bitwise against its plain version (K in
-     {1, 4, 16, 64} x n in {1, 31, 33, 100, 300, 1000} x L in {1, 7, 1024,
-     8192}; mixed ids with parked lanes, all lanes parked, ids sorted so
-     each instance's lanes lie together, every lane on one instance,
-     all-tied circulant tables);
+     {1, 4, 16, 64} x n in {1, 31, 33, 100, 300, 1000, 1025, 1500} x L in
+     {1, 7, 1024, 8192}; mixed ids with parked lanes, all lanes parked, ids
+     sorted so each instance's lanes lie together, every lane on one
+     instance, all-tied circulant tables);
   7. the multi-tenant service at full width through ``Solver.serve``:
      1024 lanes, 4 slots of n = 100, 8 requests of both families drained
      to their serial optima; the same first rounds again with the kernel
@@ -55,14 +55,22 @@ Phases (any failure raises and exits non-zero):
      popcount-issue bound (its popcounts run on the CUDA cores) with the
      bytes beside it;
  11. ``popcount_reduce`` and ``masked_row_reduce`` at cell60's shape and a
-     sweep, bitwise;
+     sweep (n up to 1500), bitwise; ``masked_row_reduce`` timed in both
+     forms (OR, AND), ``popcount_reduce`` beside an empty kernel of its
+     grid and block (the launch floor);
  12. ``flash_attention`` at qwen2-7b's and gemma2-27b's prefill widths
      (bf16: the wgmma kernel) and a sweep of both routes, held against the
      plain version with planted faults; timed over 50 launches with SDPA
      in the same call;
  13. ``ssd_scan`` at mamba2-130m's width and a sweep, timed as the sum
-     of its three passes' kernels; then the ``kernels`` line for all six
-     kernels.
+     of its three passes' kernels;
+ 14. a graph of more than 1024 vertices, ``vc gnp:1100:1:3`` (w = 35):
+     1024 lanes for 2 rounds after one bootstrap round through
+     ``Solver.solve`` with every ``count_stats`` launch held against the
+     plain version on its live inputs; one round at 16 lanes on the card
+     and on the CPU, identical ``SolveStats`` and lanes; ``count_stats``
+     timed at n = 1100 and n = 1500 (w = 47); then the ``kernels`` line
+     for all six kernels, and the seconds each phase took.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -71,6 +79,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import pathlib
@@ -109,7 +118,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 #: Where the port runs, and the sizes of each phase.
 DEV = "cuda"
-PARITY_NS = (1, 31, 33, 100, 300, 1000)
+PARITY_NS = (1, 31, 33, 100, 300, 1000, 1025, 1500)
 PARITY_LANES = (1, 7, 1024, 8192)
 DRAIN = (("vc", "gnp:100:10:7", 69), ("ds", "gnp:60:10:5", 11))
 DRAIN_LANES = 1024
@@ -143,11 +152,16 @@ SVC_TWIN_CANCEL = (4, 9)
 #: A solve checkpointed on the card and resumed on the CPU (optimum from
 #: the serial oracle, as above).
 SOLVE_CKPT = ("vc", "gnp:60:15:7", 42)
+#: Phase 14: a graph of more than 1024 vertices (w = 35 words), a few
+#: rounds at full width; the kernel timed at its n and at n = 1500 (w = 47).
+WIDE = ("vc", "gnp:1100:1:3")
+WIDE_LANES = 1024
+WIDE_TIMED = (("gnp:1100:1:3", 1024), ("gnp:1500:1:3", 1024))
 #: The kernel library's phases.  The bitset pair at cell60's shape and a
 #: sweep; attention at the full width of two of the repo's model
 #: configurations (src/repro/configs: qwen2_7b, gemma2_27b) and a sweep
 #: at small S; SSD at mamba2_130m's width and a sweep.
-REDUCE_NS = (1, 31, 32, 33, 100, 300, 1024)
+REDUCE_NS = (1, 31, 32, 33, 100, 300, 1024, 1025, 1500)
 REDUCE_LANES = (1, 7, 1024, 4096)
 #: (name, B, S, H, G, hd, window, softcap, query_scale, dtype)
 ATTN_FULL = (("qwen2_7b", 1, 4096, 28, 4, 128, None, 0.0, None, "bf16"),
@@ -302,13 +316,14 @@ def phase_parity(report):
 
 # -- phases 3 and 4 ---------------------------------------------------------
 
-def run_solve(problem, instance, lanes, device, max_rounds=100000):
+def run_solve(problem, instance, lanes, device, max_rounds=100000,
+              bootstrap_rounds=4):
     from repro_torch import registry
     from repro_torch.kernels import bitset_ops
     from repro_torch.solver import Solver, SolverConfig
-    cfg = SolverConfig(lanes=lanes, steps_per_round=64, bootstrap_rounds=4,
-                       bootstrap_steps=8, max_rounds=max_rounds,
-                       device=device)
+    cfg = SolverConfig(lanes=lanes, steps_per_round=64,
+                       bootstrap_rounds=bootstrap_rounds, bootstrap_steps=8,
+                       max_rounds=max_rounds, device=device)
     handle = registry.problem(problem, instance)
     bitset_ops.reset_launches()
     ms, res = sync_ms(lambda: Solver(cfg).solve(handle))
@@ -1112,28 +1127,57 @@ def phase_bitset_library(report):
     popcounts = lanes * w
     pc_bound = rate_bound(popcounts, POPC_PER_CLOCK_PER_SM * sms * clock_hz,
                           4 * (lanes * w + lanes))
+    floor = launch_floor(select)
     pc = measure(
         "popcount_reduce", lambda: ops.popcount_reduce(select),
         lambda: ref.popcount_reduce_ref(select), 200, 20, *pc_bound,
-        n=n, w=w, L=lanes, popcounts=popcounts)
+        n=n, w=w, L=lanes, popcounts=popcounts, floor_ms=floor["ms"],
+        floor_ms_source=floor["ms_source"],
+        floor_ms_events=floor["ms_events"])
     selected = int(bit_set(select, n).sum())
     mr_bound = rate_bound(selected * w,
                           LOGIC_PER_CLOCK_PER_SM * sms * clock_hz,
                           4 * (n * w + 2 * lanes * w))
-    mr = measure(
+    mr = {op: measure(
         "masked_row_reduce",
-        lambda: ops.masked_row_reduce(table, select, op="or"),
-        lambda: ref.masked_row_reduce_ref(table, select, op="or"), 200, 20,
-        *mr_bound, n=n, w=w, L=lanes, op="or", selected_pairs=selected,
-        word_ops=selected * w)
-    for name, t in (("popcount_reduce", pc), ("masked_row_reduce", mr)):
+        lambda: ops.masked_row_reduce(table, select, op=op),
+        lambda: ref.masked_row_reduce_ref(table, select, op=op), 200, 20,
+        *mr_bound, n=n, w=w, L=lanes, op=op, selected_pairs=selected,
+        word_ops=selected * w) for op in ("or", "and")}
+    for name, t in (("popcount_reduce", pc),
+                    ("masked_row_reduce or", mr["or"]),
+                    ("masked_row_reduce and", mr["and"])):
         print(f"phase 11: {name} n={n} w={w} L={lanes}: kernel "
               f"{t['ms'] * 1e3:.2f} us ({t['ms_source']}; events "
               f"{t['ms_events'] * 1e3:.2f} us), plain "
               f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.3f}"
               f" us ({t['bound_by']})", flush=True)
-    report["library_timing"] = dict(popcount_reduce=pc, masked_row_reduce=mr)
+    print(f"phase 11: launch floor (an empty kernel of popcount_reduce's "
+          f"grid and block) {floor['ms'] * 1e3:.2f} us ({floor['ms_source']};"
+          f" events {floor['ms_events'] * 1e3:.2f} us)", flush=True)
+    report["library_timing"] = dict(popcount_reduce=pc,
+                                    masked_row_reduce=mr)
     return pc, mr
+
+
+def launch_floor(rows):
+    """An empty kernel launched with ``popcount_reduce``'s grid and block
+    for ``rows``, timed as the kernels are (not counted: it is no kernel
+    of the library)."""
+    from repro_torch.kernels import _build
+    fn = _build.load("popcount_reduce").popcount_reduce_floor_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run():
+        err = fn(rows.shape[0], rows.shape[1],
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"launch floor kernel: CUDA error {err}")
+    ev_ms = events_ms(run, 200)
+    prof_ms, _ = profiled_ms(run, "launch_floor", 20)
+    return dict(ms=prof_ms if prof_ms is not None else ev_ms,
+                ms_source="profiler" if prof_ms is not None else "events",
+                ms_events=ev_ms)
 
 
 def randn(gen, shape, dtype, scale=0.5):
@@ -1464,6 +1508,104 @@ def phase_ssd(report):
     return t
 
 
+# -- phase 14: a graph of more than 1024 vertices ---------------------------
+
+def phase_wide(report, rounds_after_boot=2, boot=1):
+    """``WIDE`` through ``Solver.solve`` at ``WIDE_LANES`` with every
+    kernel launch held against the plain version on its live inputs (one
+    bootstrap round: each round replays D + 1 = n + 1 launches, each
+    checked); one round at 16 lanes on the card and on the CPU; the kernel
+    timed at ``WIDE_TIMED``."""
+    from repro_torch import registry
+    from repro_torch.convert import words
+    from repro_torch.kernels import bitset_ops, ref
+    from repro_torch.problems.graphs import full_mask, parse_graph_instance
+    from repro_torch.solver import Solver, SolverConfig
+    problem, instance = WIDE
+    parity = report["parity"]["count_stats"]
+    kernel = bitset_ops.count_stats
+    checked = [0]
+
+    def checked_kernel(table, mask, valid):
+        out = kernel(table, mask, valid)
+        compare(out, ref.count_stats_ref(table, mask, valid),
+                f"{instance} live inputs", parity)
+        checked[0] += 1
+        return out
+
+    bitset_ops.count_stats = checked_kernel      # bitset_degree's lookup
+    try:
+        res, ms, launches = run_solve(problem, instance, WIDE_LANES, DEV,
+                                      max_rounds=boot + rounds_after_boot,
+                                      bootstrap_rounds=boot)
+    finally:
+        bitset_ops.count_stats = kernel
+    s = res.stats
+    w = parse_graph_instance(instance).words
+    print(f"phase 14: {problem} {instance} (w={w}) lanes={WIDE_LANES} "
+          f"rounds={s.rounds}: incumbent={s.best} nodes={s.nodes} "
+          f"T_S={s.t_s} T_R={s.t_r} wall={ms:.1f} ms (every launch "
+          f"checked) count_stats launches={launches}, each bitwise equal to "
+          f"plain on its live inputs", flush=True)
+    check(s.rounds == boot + rounds_after_boot,
+          f"{instance}: {s.rounds} rounds (want {boot + rounds_after_boot})")
+    check(launches > 0 and launches == checked[0],
+          f"{instance}: {launches} launches, {checked[0]} checked")
+    report["launches"]["count_stats"] += launches
+    report["solves"].append(dict(problem=problem, instance=instance,
+                                 lanes=WIDE_LANES, stats=s._asdict(),
+                                 wall_ms=ms, launches=launches,
+                                 checked=checked[0]))
+
+    # One round at 16 lanes on the card and on the CPU.
+    cfg = dict(lanes=16, steps_per_round=64, bootstrap_rounds=1,
+               bootstrap_steps=8, max_rounds=1)
+    handle = registry.problem(problem, instance)
+    bitset_ops.reset_launches()
+    gpu_ms, gpu = sync_ms(
+        lambda: Solver(SolverConfig(device=DEV, **cfg)).solve(handle))
+    twin_launches = bitset_ops.LAUNCHES["count_stats"]
+    t0 = time.perf_counter()
+    cpu = Solver(SolverConfig(device="cpu", **cfg)).solve(handle)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    print(f"phase 14: {problem} {instance} lanes=16, 1 round: cuda "
+          f"{tuple(gpu.stats)} ({gpu_ms:.0f} ms, {twin_launches} launches),"
+          f" cpu {tuple(cpu.stats)} ({cpu_ms:.0f} ms)", flush=True)
+    check(gpu.stats == cpu.stats, f"{instance}: SolveStats differ between "
+                                  f"cuda and cpu")
+    check(twin_launches > 0, f"{instance}: count_stats never launched")
+    check_same_lanes(gpu.lanes, cpu.lanes, f"{instance} twin")
+    report["launches"]["count_stats"] += twin_launches
+    report["wide_twin"] = dict(stats=gpu.stats._asdict(), cuda_ms=gpu_ms,
+                               cpu_ms=cpu_ms, launches=twin_launches)
+
+    clock_hz, sms = report["clock_max_sm_hz"], report["sms"]
+    timed_cases = []
+    for spec, lanes in WIDE_TIMED:
+        graph = parse_graph_instance(spec)
+        root = words(np.broadcast_to(full_mask(graph.n),
+                                     (lanes, graph.words)).copy(), DEV)
+        timed_cases.append(dict(
+            kernel_times(words(graph.adj, DEV), root, root, clock_hz, sms),
+            masks=f"{spec}, every lane at the root"))
+    alive = live_alive(res.lanes)
+    timed_cases.append(dict(
+        kernel_times(words(parse_graph_instance(instance).adj, DEV), alive,
+                     alive, clock_hz, sms),
+        masks=f"{instance}, live masks after {s.rounds} rounds"))
+    for t in timed_cases:
+        print(f"phase 14: count_stats n={t['n']} w={t['w']} L={t['L']} "
+              f"({t['masks']}): kernel {t['ms'] * 1e3:.2f} us "
+              f"({t['ms_source']}; events {t['ms_events'] * 1e3:.2f} us), "
+              f"plain {t['plain_ms'] * 1e3:.1f} us, bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
+              f"{t['bytes']} bytes); popcount issue of the same work "
+              f"{t['popc_bound_ms'] * 1e3:.3f} us ({t['popcounts']} "
+              f"popcounts)", flush=True)
+    report["wide_timing"] = timed_cases
+    return timed_cases
+
+
 # -- driver -----------------------------------------------------------------
 
 def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
@@ -1486,10 +1628,12 @@ def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
 #: The SASS instructions that show each redesigned kernel's hardware path:
 #: the tensor cores fed by TMA (flash_attention's bf16 route), the tensor
 #: cores' binary product beside the popcounts of the mask counts
-#: (count_stats) and the tensor cores' bf16 product (ssd_scan's bf16
-#: route, mma.sync).  Each must appear at least once.
+#: (count_stats), the warp-wide reductions that fold the branch-free
+#: partial rows (masked_row_reduce) and the tensor cores' bf16 product
+#: (ssd_scan's bf16 route, mma.sync).  Each must appear at least once.
 SASS_PATHS = {"flash_attention": ("HGMMA", "UTMALDG"),
               "count_stats": ("BMMA", "POPC"),
+              "masked_row_reduce": ("REDUX",),
               "ssd_scan": ("HMMA",)}
 #: An instruction whose opcode is {} (after its address and an optional
 #: predicate), not a modifier of another opcode (BMMA's ".POPC").
@@ -1583,26 +1727,37 @@ def main() -> int:
                   parity={k: dict(compared=0, mismatches=0, max_abs_err=0)
                           for k in KERNELS},
                   launches=dict.fromkeys(KERNELS, 0), solves=[])
-    phase_parity(report)
-    phase_drain(report)
-    cell60_lanes = phase_cell60(report)
-    full, live, small = phase_timing(cell60_lanes, report)
-    phase_stacked_parity(report)
-    phase_service(report)
-    svc, service_inputs = phase_service_steps(report)
-    phase_service_twin(report)
-    phase_checkpoints(report, svc)
-    service, interleaved, in_order = phase_stacked_timing(report,
-                                                         service_inputs)
-    popcount, row_reduce = phase_bitset_library(report)
-    attention = phase_attention(report)
-    ssd = phase_ssd(report)
+    seconds = report["phase_seconds"] = {}
+
+    def run(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    seconds[1] = round(time.perf_counter() - t_start, 1)
+    run(2, phase_parity, report)
+    run(3, phase_drain, report)
+    cell60_lanes = run(4, phase_cell60, report)
+    full, live, small = run(5, phase_timing, cell60_lanes, report)
+    run(6, phase_stacked_parity, report)
+    run(7, phase_service, report)
+    svc, service_inputs = run("7b", phase_service_steps, report)
+    run(8, phase_service_twin, report)
+    run(9, phase_checkpoints, report, svc)
+    service, interleaved, in_order = run(10, phase_stacked_timing, report,
+                                         service_inputs)
+    popcount, row_reduce = run(11, phase_bitset_library, report)
+    attention = run(12, phase_attention, report)
+    ssd = run(13, phase_ssd, report)
+    wide = run(14, phase_wide, report)
     kernels_line = {"kernels": [
-        kernel_entry("count_stats", report, full, [full, live, small]),
+        kernel_entry("count_stats", report, full, [full, live, small, *wide]),
         kernel_entry("stacked_count_stats", report, service,
                      [service, interleaved, in_order]),
         kernel_entry("popcount_reduce", report, popcount, [popcount]),
-        kernel_entry("masked_row_reduce", report, row_reduce, [row_reduce]),
+        kernel_entry("masked_row_reduce", report, row_reduce["or"],
+                     [row_reduce["or"], row_reduce["and"]]),
         kernel_entry("flash_attention", report, attention[0], attention,
                      "allclose rtol = atol = 2e-2 (bf16), 2e-5 (f32); "
                      "normalised error <= 5e-3 (bf16), 2e-5 (f32)"),
@@ -1614,7 +1769,8 @@ def main() -> int:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    print(f"all phases passed in {report['seconds']:.1f} s", flush=True)
+    print(f"all phases passed in {report['seconds']:.1f} s; seconds by "
+          f"phase {seconds}", flush=True)
     print(smi("name,power.limit"))
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

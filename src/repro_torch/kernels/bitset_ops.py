@@ -23,9 +23,6 @@ from repro_torch.kernels import _build, ref
 #: Column layout of the ``count_stats`` output.
 BEST, ARG, SUM, MASK_COUNT = 0, 1, 2, 3
 
-#: Largest row width (in 32-bit words) the CUDA kernel takes: n <= 1024.
-MAX_WORDS = 32
-
 #: Launches of each CUDA kernel since the last ``reset_launches()`` (one
 #: registry for all the port's kernels, kept in ``_build``).
 LAUNCHES = _build.LAUNCHES
@@ -70,9 +67,6 @@ def count_stats(table: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"count_stats has no kernel for {table.device}")
     n, w = table.shape
     lanes = mask.shape[0]
-    if w > MAX_WORDS:
-        raise ValueError(f"count_stats kernel takes w <= {MAX_WORDS} words "
-                         f"(n <= {32 * MAX_WORDS}), got w={w}")
     out = torch.empty((lanes, 4), dtype=torch.int32, device=table.device)
     _build.launch("count_stats", [_PTR] * 4 + [_INT] * 3,
                   [table.data_ptr(), mask.data_ptr(), valid.data_ptr(),
@@ -122,10 +116,6 @@ def stacked_count_stats(tables: torch.Tensor, inst: torch.Tensor,
                          f"{tables.device}")
     _, n, w = tables.shape
     lanes = mask.shape[0]
-    if w > MAX_WORDS:
-        raise ValueError(f"stacked_count_stats kernel takes w <= "
-                         f"{MAX_WORDS} words (n <= {32 * MAX_WORDS}), got "
-                         f"w={w}")
     out = torch.empty((lanes, 4), dtype=torch.int32, device=tables.device)
     _build.launch("stacked_count_stats", [_PTR] * 5 + [_INT] * 4,
                   [tables.data_ptr(), inst.data_ptr(), mask.data_ptr(),

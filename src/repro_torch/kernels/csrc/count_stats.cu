@@ -37,6 +37,12 @@
 // and enough warps are resident to hide the latency of the loads and of
 // the products (four were slower on the card, sixteen no faster).
 //
+// Rows of more than 32 words (n > 1024) take count_stats_wide_kernel: the
+// same products, tile walk, tie-break key and reductions, but the A
+// fragments are not held for every k-step (4 registers a step, without
+// bound in w).  Each tile reloads them step by step; the 16 lanes' masks
+// are 64 * w bytes and stay in L1.
+//
 // Fragments of mma.m16n8k256 .b1 (PTX ISA, "Matrix fragments for
 // mma.m16n8k256"), with g = thread / 4 and q = thread % 4 in the warp:
 //   A (16 x 256, row-major):  a0 = row g,     bits 32q .. 32q + 31
@@ -189,6 +195,114 @@ count_stats_kernel(const uint32_t* __restrict__ table,
   }
 }
 
+// The wide path (w > 32): count_stats_kernel with the k-steps a loop and
+// each step's A fragments loaded where the product needs them.
+__global__ void __launch_bounds__(kWarps * 32)
+count_stats_wide_kernel(const uint32_t* __restrict__ table,
+                        const uint32_t* __restrict__ mask,
+                        const uint32_t* __restrict__ valid,
+                        int32_t* __restrict__ out, int n, int w, int lanes) {
+  __shared__ unsigned long long s_key[kWarps][kLanesPerBlock];
+  __shared__ int s_sum[kWarps][kLanesPerBlock];
+
+  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int g = t >> 2, q = t & 3;
+  const int lane0 = blockIdx.x * kLanesPerBlock;
+  const int la = lane0 + g, lb = lane0 + g + 8;  // the thread's two lanes
+  const bool ina = la < lanes, inb = lb < lanes;
+  const uint32_t* ma = mask + (size_t)la * w;
+  const uint32_t* mb = mask + (size_t)lb * w;
+  const int ks = (w + 7) >> 3;
+
+  int mcount_a = 0, mcount_b = 0;
+  for (int k = q; k < w; k += 4) {
+    mcount_a += ina ? __popc(ma[k]) : 0;
+    mcount_b += inb ? __popc(mb[k]) : 0;
+  }
+
+  int best_a = -1, arg_a = -1, sum_a = 0;
+  int best_b = -1, arg_b = -1, sum_b = 0;
+  const int tiles = (n + 7) >> 3;
+  for (int tile = warp; tile < tiles; tile += kWarps) {
+    const int v0 = 8 * tile;           // this warp's 8 vertices
+    const int i = tile >> 2;           // their valid word
+    const int vrow = v0 + g;           // the vertex whose B fragment t loads
+    const uint32_t* row = table + (size_t)vrow * w;
+    int d[4] = {0, 0, 0, 0};
+#pragma unroll 2
+    for (int s = 0; s < ks; ++s) {
+      const int k0 = 8 * s + q, k1 = 8 * s + 4 + q;
+      const bool in0 = k0 < w, in1 = k1 < w;
+      const uint32_t a[4] = {
+          ina && in0 ? ma[k0] : 0u, inb && in0 ? mb[k0] : 0u,
+          ina && in1 ? ma[k1] : 0u, inb && in1 ? mb[k1] : 0u};
+      const uint32_t b0 = vrow < n && in0 ? row[k0] : 0u;
+      const uint32_t b1 = vrow < n && in1 ? row[k1] : 0u;
+      bmma_and_popc(d, a, b0, b1);
+    }
+    // From here on as count_stats_kernel.
+    const int shift = 8 * (tile & 3) + 2 * q;
+    const uint32_t va = ina ? valid[(size_t)la * w + i] >> shift : 0u;
+    const uint32_t vb = inb ? valid[(size_t)lb * w + i] >> shift : 0u;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int v = v0 + 2 * q + c;
+      if (v < n) {
+        if ((va >> c) & 1u) {
+          sum_a += d[c];
+          if (d[c] > best_a) { best_a = d[c]; arg_a = v; }
+        }
+        if ((vb >> c) & 1u) {
+          sum_b += d[2 + c];
+          if (d[2 + c] > best_b) { best_b = d[2 + c]; arg_b = v; }
+        }
+      }
+    }
+  }
+
+  unsigned long long key_a = best_a < 0 ? 0ull : key_of(best_a, arg_a);
+  unsigned long long key_b = best_b < 0 ? 0ull : key_of(best_b, arg_b);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    key_a = max_u64(key_a, __shfl_xor_sync(0xFFFFFFFFu, key_a, off));
+    key_b = max_u64(key_b, __shfl_xor_sync(0xFFFFFFFFu, key_b, off));
+    sum_a += __shfl_xor_sync(0xFFFFFFFFu, sum_a, off);
+    sum_b += __shfl_xor_sync(0xFFFFFFFFu, sum_b, off);
+    mcount_a += __shfl_xor_sync(0xFFFFFFFFu, mcount_a, off);
+    mcount_b += __shfl_xor_sync(0xFFFFFFFFu, mcount_b, off);
+  }
+  if (q == 0) {
+    s_key[warp][g] = key_a;
+    s_key[warp][g + 8] = key_b;
+    s_sum[warp][g] = sum_a;
+    s_sum[warp][g + 8] = sum_b;
+  }
+  __syncthreads();
+
+  if (warp == 0 && q == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      const int lane = lane0 + r;
+      if (lane >= lanes) continue;
+      unsigned long long key = 0ull;
+      int sum = 0;
+#pragma unroll
+      for (int p = 0; p < kWarps; ++p) {
+        key = max_u64(key, s_key[p][r]);
+        sum += s_sum[p][r];
+      }
+      const int best = (int)(key >> 32) - 1;
+      int32_t* o = out + (size_t)lane * 4;
+      o[0] = best;
+      o[1] = best < 0 ? -1 : (int)(0xFFFFFFFFu - (uint32_t)key);
+      o[2] = sum;
+      o[3] = h == 0 ? mcount_a : mcount_b;
+    }
+  }
+}
+
 template <int KS>
 void launch(const uint32_t* table, const uint32_t* mask,
             const uint32_t* valid, int32_t* out, int n, int w, int lanes,
@@ -201,7 +315,8 @@ void launch(const uint32_t* table, const uint32_t* mask,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Takes 1 <= w <= 32 words per row and n <= 32 * w vertices.
+// Takes w >= 1 words per row and n <= 32 * w vertices; w > 32 takes the
+// wide path.
 extern "C" int count_stats_launch(const void* table, const void* mask,
                                   const void* valid, void* out, int n, int w,
                                   int lanes, void* stream) {
@@ -210,8 +325,14 @@ extern "C" int count_stats_launch(const void* table, const void* mask,
   const auto* vd = static_cast<const uint32_t*>(valid);
   auto* o = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || w < 1 || lanes < 1 || w > 32 || n > 32 * w) {
+  if (n < 1 || w < 1 || lanes < 1 || n > 32LL * w) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (w > 32) {
+    const int blocks = (lanes + kLanesPerBlock - 1) / kLanesPerBlock;
+    count_stats_wide_kernel<<<blocks, kWarps * 32, 0, s>>>(tb, mk, vd, o, n,
+                                                           w, lanes);
+    return (int)cudaGetLastError();
   }
   switch ((w + 7) / 8) {
     case 1: launch<1>(tb, mk, vd, o, n, w, lanes, s); break;

@@ -10,34 +10,48 @@
 // Programming Guide's throughput table for compute capability 9.0), about
 // 42 G popcounts/s over 132 SMs against 0.84 G words/s of HBM (3.35 TB/s).
 // So it is bound by the bytes it reads, and at the shapes of the solver
-// (L = 4096, w = 10: 160 KB) by the launch itself.
+// (L = 4096, w = 10: 160 KB) by the launch itself: popcount_reduce_floor
+// launches an empty kernel of the same grid and block, to time that floor.
 //
-// Design.  One warp per row: the warp's 32 threads stride over the row's
-// words (neighbouring threads on neighbouring words, so a row of up to 32
-// words is one coalesced load), each sums its __popc, and a warp-shuffle
-// sum leaves the total in thread 0.  No shared memory, no atomics.
+// Design.  A sub-warp of SW threads per row, SW = w rounded up to a power
+// of two (at most 32), so a warp holds 32 / SW rows and every thread has a
+// word to read when w is a power of two: the threads stride over the row's
+// words (consecutive rows lie together, so a warp's loads are one run of
+// words), each sums its __popc, and a shuffle sum within the sub-warp
+// leaves the total in its first thread.  No shared memory, no atomics.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <int SW>
+__global__ void __launch_bounds__(kThreads)
 popcount_reduce_kernel(const uint32_t* __restrict__ rows,
                        int32_t* __restrict__ out, int lanes, int w) {
-  const int lane = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int t = threadIdx.x & 31;
-  if (lane >= lanes) return;  // the whole warp leaves together
-  const uint32_t* row = rows + (size_t)lane * w;
+  const int lane = blockIdx.x * (kThreads / SW) + threadIdx.x / SW;
+  const int t = threadIdx.x % SW;
   int c = 0;
-  for (int k = t; k < w; k += 32) c += __popc(row[k]);
+  if (lane < lanes) {    // every thread stays for the shuffles
+    const uint32_t* row = rows + (size_t)lane * w;
+    for (int k = t; k < w; k += SW) c += __popc(row[k]);
+  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = SW / 2; off > 0; off >>= 1) {
     c += __shfl_xor_sync(0xFFFFFFFFu, c, off);
   }
-  if (t == 0) out[lane] = c;
+  if (t == 0 && lane < lanes) out[lane] = c;
+}
+
+__global__ void launch_floor_kernel() {}
+
+// The sub-warp width for rows of w words.
+int sub_warp(int w) {
+  int sw = 1;
+  while (sw < w && sw < 32) sw <<= 1;
+  return sw;
 }
 
 }  // namespace
@@ -47,10 +61,30 @@ popcount_reduce_kernel(const uint32_t* __restrict__ rows,
 extern "C" int popcount_reduce_launch(const void* rows, void* out, int lanes,
                                       int w, void* stream) {
   if (lanes < 1 || w < 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (lanes + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  popcount_reduce_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(rows), static_cast<int32_t*>(out), lanes,
-      w);
+  const auto* r = static_cast<const uint32_t*>(rows);
+  auto* o = static_cast<int32_t*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int sw = sub_warp(w);
+  const int blocks = (lanes + kThreads / sw - 1) / (kThreads / sw);
+  switch (sw) {
+    case 1: popcount_reduce_kernel<1><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    case 2: popcount_reduce_kernel<2><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    case 4: popcount_reduce_kernel<4><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    case 8: popcount_reduce_kernel<8><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    case 16: popcount_reduce_kernel<16><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    default: popcount_reduce_kernel<32><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel launched with popcount_reduce's grid and block for
+// (lanes, w): the least time any kernel of that launch takes.  Not a kernel
+// of the library: chip_smoke.py times it beside popcount_reduce.
+extern "C" int popcount_reduce_floor_launch(int lanes, int w, void* stream) {
+  if (lanes < 1 || w < 0) return (int)cudaErrorInvalidValue;
+  const int sw = sub_warp(w);
+  const int blocks = (lanes + kThreads / sw - 1) / (kThreads / sw);
+  launch_floor_kernel<<<blocks, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,11 @@
 // over the warp makes the result deterministic.  The base pointer
 // tables + inst[l] * n * w takes the place of the scalar-prefetch index
 // map; a parked lane's warp leaves before it loads anything but its id.
+// Rows of more than 32 words (n > 1024) take stacked_count_stats_wide_kernel:
+// the same warp per lane, but the lane's mask and valid words (2 * w
+// registers, without bound in w) are read where they are needed; every
+// thread of the warp reads the same word at once, a broadcast from L1
+// (the lane's words are 8 * w bytes).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -114,6 +119,71 @@ stacked_count_stats_kernel(const uint32_t* __restrict__ tables,
   }
 }
 
+// The wide path (w > 32): stacked_count_stats_kernel without the lane's
+// words in registers.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+stacked_count_stats_wide_kernel(const uint32_t* __restrict__ tables,
+                                const int32_t* __restrict__ inst,
+                                const uint32_t* __restrict__ mask,
+                                const uint32_t* __restrict__ valid,
+                                int32_t* __restrict__ out, int k, int n,
+                                int w, int lanes) {
+  const int lane = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int t = threadIdx.x & 31;
+  if (lane >= lanes) return;  // the whole warp leaves together
+
+  const int id = inst[lane];
+  if (id < 0 || id >= k) {    // parked: the whole warp takes this branch
+    if (t == 0) {
+      int32_t* o = out + (size_t)lane * 4;
+      o[0] = -1;
+      o[1] = -1;
+      o[2] = 0;
+      o[3] = 0;
+    }
+    return;
+  }
+  const uint32_t* table = tables + (size_t)id * n * w;
+  const uint32_t* m = mask + (size_t)lane * w;
+  const uint32_t* vw = valid + (size_t)lane * w;
+
+  unsigned long long key = 0ull;  // decodes to (best = -1, arg = -1)
+  int sum = 0;
+  for (int i = 0; i * 32 < n; ++i) {  // n <= 32 w, so i < w
+    const int v = i * 32 + t;
+    if (v < n && ((vw[i] >> t) & 1u)) {
+      const uint32_t* row = table + (size_t)v * w;
+      int c = 0;
+#pragma unroll 4
+      for (int j = 0; j < w; ++j) c += __popc(row[j] & m[j]);
+      sum += c;
+      const unsigned long long cand =
+          ((unsigned long long)(c + 1) << 32) | (0xFFFFFFFFu - (uint32_t)v);
+      key = cand > key ? cand : key;
+    }
+  }
+  int mcount = 0;
+  for (int j = t; j < w; j += 32) mcount += __popc(m[j]);
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long other = __shfl_xor_sync(0xFFFFFFFFu, key, off);
+    key = other > key ? other : key;
+    sum += __shfl_xor_sync(0xFFFFFFFFu, sum, off);
+    mcount += __shfl_xor_sync(0xFFFFFFFFu, mcount, off);
+  }
+
+  if (t == 0) {
+    const int best = (int)(key >> 32) - 1;
+    const int arg = best < 0 ? -1 : (int)(0xFFFFFFFFu - (uint32_t)key);
+    int32_t* o = out + (size_t)lane * 4;
+    o[0] = best;
+    o[1] = arg;
+    o[2] = sum;
+    o[3] = mcount;
+  }
+}
+
 template <int MAXW>
 void launch(const uint32_t* tables, const int32_t* inst,
             const uint32_t* mask, const uint32_t* valid, int32_t* out, int k,
@@ -127,7 +197,8 @@ void launch(const uint32_t* tables, const int32_t* inst,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Takes K >= 1 tables, 1 <= w <= 32 words per row and n <= 32 * w vertices.
+// Takes K >= 1 tables, w >= 1 words per row and n <= 32 * w vertices; w > 32
+// takes the wide path.
 extern "C" int stacked_count_stats_launch(const void* tables,
                                           const void* inst, const void* mask,
                                           const void* valid, void* out, int k,
@@ -139,10 +210,14 @@ extern "C" int stacked_count_stats_launch(const void* tables,
   const auto* vd = static_cast<const uint32_t*>(valid);
   auto* o = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || n < 1 || w < 1 || lanes < 1 || w > 32 || n > 32 * w) {
+  if (k < 1 || n < 1 || w < 1 || lanes < 1 || n > 32LL * w) {
     return (int)cudaErrorInvalidValue;
   }
-  if (w <= 2) {
+  if (w > 32) {
+    const int blocks = (lanes + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    stacked_count_stats_wide_kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
+        tb, in, mk, vd, o, k, n, w, lanes);
+  } else if (w <= 2) {
     launch<2>(tb, in, mk, vd, o, k, n, w, lanes, s);
   } else if (w <= 4) {
     launch<4>(tb, in, mk, vd, o, k, n, w, lanes, s);

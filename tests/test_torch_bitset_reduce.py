@@ -20,8 +20,10 @@ from repro_torch.convert import words
 from repro_torch.kernels import bitset_ops, ref
 from repro_torch.problems.graphs import num_words
 
-#: (n, lanes): n on both sides of the word boundaries.
-CASES = [(1, 3), (31, 5), (32, 4), (33, 6), (40, 7), (100, 5), (130, 3)]
+#: (n, lanes): n on both sides of the word boundaries and above 1024
+#: vertices (w = 35).
+CASES = [(1, 3), (31, 5), (32, 4), (33, 6), (40, 7), (100, 5), (130, 3),
+         (1100, 4)]
 #: The cases also run through the reference's Pallas kernel (interpret
 #: mode compiles each shape anew, about a second each), with its tile.
 PALLAS_CASES = [(1, 3, 32), (33, 6, 128), (40, 7, 32), (100, 5, 128)]

@@ -34,8 +34,10 @@ def random_words(rng, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 31, 33, 100, 300, 1000])
+@pytest.mark.parametrize("n", [1, 31, 33, 100, 300, 1000, 1025, 1100, 1500,
+                               4100])
 def test_cuda_kernel_equals_plain_version(n):
+    """n above 1024 takes the kernel's wide path (w > 32 words)."""
     need_card()
     rng = np.random.RandomState(n)
     w = num_words(n)
@@ -66,9 +68,10 @@ def test_cuda_kernel_equals_plain_version(n):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,w", [(1, 1), (20, 1), (300, 10), (257, 10),
-                                 (31, 32), (1000, 32), (1024, 32)])
+                                 (31, 32), (1000, 32), (1024, 32), (33, 40),
+                                 (1025, 33), (1500, 64)])
 def test_cuda_kernel_equals_plain_version_at_any_width(n, w):
-    """Rows wider than n needs (w up to 32), n not a multiple of 32, lane
+    """Rows wider than n needs (w up to 64), n not a multiple of 32, lane
     counts that are not multiples of a block's 16, all-tied counts and
     lanes with nothing valid."""
     need_card()
@@ -93,15 +96,6 @@ def test_cuda_kernel_equals_plain_version_at_any_width(n, w):
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_rejects_rows_wider_than_it_takes():
-    need_card()
-    t = torch.zeros((1100, 35), dtype=torch.int32, device="cuda")
-    m = torch.zeros((2, 35), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError):
-        bitset_ops.count_stats(t, m, m)
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("family,spec,lanes", [("vc", "gnp:40:20:3", 32),
                                                ("ds", "gnp:30:15:2", 16)])
 def test_solve_on_the_card_equals_the_cpu(family, spec, lanes):
@@ -117,11 +111,33 @@ def test_solve_on_the_card_equals_the_cpu(family, spec, lanes):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k,n", [(1, 33), (4, 100), (16, 300), (64, 100)])
+def test_wide_solve_on_the_card_equals_the_cpu():
+    """A graph of 1100 vertices (35 words a row): one round (8 steps and a
+    steal with its replay) on the card and on the CPU, the same
+    ``SolveStats`` and lanes."""
+    need_card()
+    handle = registry.problem("vc", "gnp:1100:1:3")
+    cfg = dict(lanes=16, steps_per_round=64, bootstrap_rounds=1,
+               bootstrap_steps=8, max_rounds=1)
+    bitset_ops.reset_launches()
+    gpu = Solver(SolverConfig(device="cuda", **cfg)).solve(handle)
+    assert bitset_ops.LAUNCHES["count_stats"] > 0
+    cpu = Solver(SolverConfig(device="cpu", **cfg)).solve(handle)
+    assert gpu.stats == cpu.stats
+    for a, b in zip(to_numpy(gpu.lanes), to_numpy(cpu.lanes)):
+        for x, y in zip(*((v,) if isinstance(v, np.ndarray) else tuple(v)
+                          for v in (a, b))):
+            assert np.array_equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(1, 33), (4, 100), (16, 300), (64, 100),
+                                 (4, 1100), (16, 1500)])
 def test_stacked_kernel_equals_plain_version(k, n):
     """Ids mixed with parked lanes, all parked, sorted (each instance's
     lanes together) and all on one instance: every layout must give the
-    plain version's bits, K = 64 included."""
+    plain version's bits, K = 64 and rows of more than 32 words (the
+    kernel's wide path) included."""
     need_card()
     rng = np.random.RandomState(k * n)
     w = num_words(n)
@@ -178,7 +194,7 @@ def test_service_on_the_card_equals_the_cpu():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 300])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 300, 1025, 1500])
 def test_bitset_reduce_kernels_equal_plain_versions(n):
     need_card()
     rng = np.random.RandomState(n)

@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels import bitset_degree as jdeg
 from repro.kernels import bitset_ops as jops
+from repro.kernels import ref as jref
 from repro.problems import graphs as jgraphs
 from repro_torch.convert import words
 from repro_torch.kernels import bitset_degree, bitset_ops, ref
@@ -157,6 +158,27 @@ def test_bindings_equal_reference(n, lanes):
     np.testing.assert_array_equal(
         ref.domination_stats_ref(words(cadj), words(dominated), words(cand),
                                  words(fullm)).numpy(), want)
+
+
+# -- graphs above 1024 vertices: rows of more than 32 words ------------------
+
+@pytest.mark.parametrize("n", [1025, 1100, 1500])
+@pytest.mark.parametrize("kind", ["random", "tied"])
+def test_count_stats_plain_equals_reference_above_1024_vertices(n, kind):
+    """w = 33, 35 and 47 words, the widths of the kernel's wide path: the
+    port's plain version against the reference's, with lanes that have
+    nothing valid (random) and counts that all tie (circulant)."""
+    rng = np.random.RandomState(n + len(kind))
+    make = random_case if kind == "random" else tied_case
+    table, mask, valid = make(rng, n, 5)
+    want = np.asarray(jref.count_stats_ref(
+        jnp.asarray(table), jnp.asarray(mask), jnp.asarray(valid)))
+    got = port_count_stats(table, mask, valid)
+    np.testing.assert_array_equal(got, want)
+    if kind == "tied":
+        np.testing.assert_array_equal(got[::2, :2], [[4, 0]] * 3)
+    else:
+        np.testing.assert_array_equal(got[::3, :3], [[-1, -1, 0]] * 2)
 
 
 # -- the wrapper's contract ---------------------------------------------------

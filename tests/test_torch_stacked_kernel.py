@@ -87,6 +87,24 @@ def test_all_tied_counts_pick_the_smallest_id(k, n, lanes, tile, stages):
     np.testing.assert_array_equal(got, plain)
 
 
+@pytest.mark.parametrize("k,n", [(2, 1025), (3, 1100), (2, 1500)])
+@pytest.mark.parametrize("tied", [False, True])
+def test_plain_version_equals_reference_above_1024_vertices(k, n, tied):
+    """Rows of 33, 35 and 47 words (the kernel's wide path) with parked
+    lanes and, for circulant tables, counts that all tie: the port's plain
+    version against the reference's."""
+    rng = np.random.RandomState(k * n)
+    tables, inst, mask, valid = make_case(rng, k, n, 6, tied)
+    plain = np.asarray(j_ref.stacked_count_stats_ref(
+        *[jnp.asarray(a) for a in (tables, inst, mask, valid)]))
+    got = port_out(tables, inst, mask, valid)
+    np.testing.assert_array_equal(got, plain)
+    assert (got[inst < 0] == [-1, -1, 0, 0]).all()
+    if tied:
+        live = (inst >= 0) & (np.arange(6) % 3 == 1)   # valid = the mask
+        assert (got[live, 1] == 0).all()
+
+
 def test_all_lanes_parked():
     tables, inst, mask, valid = make_case(np.random.RandomState(5), 3, 33, 7)
     inst[:] = -1
