@@ -38,10 +38,11 @@
 // the products (four were slower on the card, sixteen no faster).
 //
 // Rows of more than 32 words (n > 1024) take count_stats_wide_kernel: the
-// same products, tile walk, tie-break key and reductions, but the A
-// fragments are not held for every k-step (4 registers a step, without
-// bound in w).  Each tile reloads them step by step; the 16 lanes' masks
-// are 64 * w bytes and stay in L1.
+// same products and tile walk, and the same epilogue (fold_tile) and
+// reductions (combine_and_store), but the A fragments are not held for
+// every k-step (4 registers a step, without bound in w).  Each tile
+// reloads them step by step; the 16 lanes' masks are 64 * w bytes and stay
+// in L1.
 //
 // Fragments of mma.m16n8k256 .b1 (PTX ISA, "Matrix fragments for
 // mma.m16n8k256"), with g = thread / 4 and q = thread % 4 in the warp:
@@ -81,6 +82,88 @@ __device__ __forceinline__ unsigned long long key_of(int c, int v) {
 __device__ __forceinline__ unsigned long long max_u64(unsigned long long a,
                                                       unsigned long long b) {
   return a > b ? a : b;
+}
+
+// Folds the accumulator fragment d of the 8-vertex tile at v0 (valid word
+// i) into the running best count, its vertex and the sum of counts of the
+// thread's two lanes: vertices v0 + 2q and v0 + 2q + 1 whose valid bits are
+// set.  A strict comparison over ascending vertices keeps the smallest id.
+// (Kept as six ints: a struct of them gave the kernels other SASS.)
+__device__ __forceinline__ void fold_tile(
+    const int (&d)[4], int v0, int i, int tile, int q, int n, int w,
+    const uint32_t* __restrict__ valid, int la, int lb, bool ina, bool inb,
+    int& best_a, int& arg_a, int& sum_a, int& best_b, int& arg_b,
+    int& sum_b) {
+  const int shift = 8 * (tile & 3) + 2 * q;
+  const uint32_t va = ina ? valid[(size_t)la * w + i] >> shift : 0u;
+  const uint32_t vb = inb ? valid[(size_t)lb * w + i] >> shift : 0u;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int v = v0 + 2 * q + c;
+    if (v < n) {
+      if ((va >> c) & 1u) {
+        sum_a += d[c];
+        if (d[c] > best_a) { best_a = d[c]; arg_a = v; }
+      }
+      if ((vb >> c) & 1u) {
+        sum_b += d[2 + c];
+        if (d[2 + c] > best_b) { best_b = d[2 + c]; arg_b = v; }
+      }
+    }
+  }
+}
+
+// Reduces the thread's partials over the quad that shares its two lanes
+// (shuffles) and over the block's warps (shared memory), and writes the
+// block's output rows: max and integer sum are associative, so the result
+// is the same bits whatever the order.
+__device__ __forceinline__ void combine_and_store(
+    int best_a, int arg_a, int sum_a, int best_b, int arg_b, int sum_b,
+    int mcount_a, int mcount_b, int warp, int g, int q, int lane0,
+    int lanes, unsigned long long (&s_key)[kWarps][kLanesPerBlock],
+    int (&s_sum)[kWarps][kLanesPerBlock], int32_t* __restrict__ out) {
+  unsigned long long key_a = best_a < 0 ? 0ull : key_of(best_a, arg_a);
+  unsigned long long key_b = best_b < 0 ? 0ull : key_of(best_b, arg_b);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    key_a = max_u64(key_a, __shfl_xor_sync(0xFFFFFFFFu, key_a, off));
+    key_b = max_u64(key_b, __shfl_xor_sync(0xFFFFFFFFu, key_b, off));
+    sum_a += __shfl_xor_sync(0xFFFFFFFFu, sum_a, off);
+    sum_b += __shfl_xor_sync(0xFFFFFFFFu, sum_b, off);
+    mcount_a += __shfl_xor_sync(0xFFFFFFFFu, mcount_a, off);
+    mcount_b += __shfl_xor_sync(0xFFFFFFFFu, mcount_b, off);
+  }
+  if (q == 0) {
+    s_key[warp][g] = key_a;
+    s_key[warp][g + 8] = key_b;
+    s_sum[warp][g] = sum_a;
+    s_sum[warp][g + 8] = sum_b;
+  }
+  __syncthreads();
+
+  // Warp 0 combines the warps' partials; its quad leader q == 0 holds
+  // the lane's mask count.
+  if (warp == 0 && q == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      const int lane = lane0 + r;
+      if (lane >= lanes) continue;
+      unsigned long long key = 0ull;
+      int sum = 0;
+#pragma unroll
+      for (int p = 0; p < kWarps; ++p) {
+        key = max_u64(key, s_key[p][r]);
+        sum += s_sum[p][r];
+      }
+      const int best = (int)(key >> 32) - 1;
+      int32_t* o = out + (size_t)lane * 4;
+      o[0] = best;
+      o[1] = best < 0 ? -1 : (int)(0xFFFFFFFFu - (uint32_t)key);
+      o[2] = sum;
+      o[3] = h == 0 ? mcount_a : mcount_b;
+    }
+  }
 }
 
 // KS = number of 256-bit k-steps, ceil(w / 8).
@@ -130,69 +213,11 @@ count_stats_kernel(const uint32_t* __restrict__ table,
       const uint32_t b1 = vrow < n && k1 < w ? row[k1] : 0u;
       bmma_and_popc(d, a[s], b0, b1);
     }
-    // The accumulator's vertices: v0 + 2q and v0 + 2q + 1.
-    const int shift = 8 * (tile & 3) + 2 * q;
-    const uint32_t va = ina ? valid[(size_t)la * w + i] >> shift : 0u;
-    const uint32_t vb = inb ? valid[(size_t)lb * w + i] >> shift : 0u;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int v = v0 + 2 * q + c;
-      if (v < n) {
-        if ((va >> c) & 1u) {
-          sum_a += d[c];
-          if (d[c] > best_a) { best_a = d[c]; arg_a = v; }
-        }
-        if ((vb >> c) & 1u) {
-          sum_b += d[2 + c];
-          if (d[2 + c] > best_b) { best_b = d[2 + c]; arg_b = v; }
-        }
-      }
-    }
+    fold_tile(d, v0, i, tile, q, n, w, valid, la, lb, ina, inb, best_a,
+              arg_a, sum_a, best_b, arg_b, sum_b);
   }
-
-  // Reduce over the quad (q = 0..3) that shares the two lanes.
-  unsigned long long key_a = best_a < 0 ? 0ull : key_of(best_a, arg_a);
-  unsigned long long key_b = best_b < 0 ? 0ull : key_of(best_b, arg_b);
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    key_a = max_u64(key_a, __shfl_xor_sync(0xFFFFFFFFu, key_a, off));
-    key_b = max_u64(key_b, __shfl_xor_sync(0xFFFFFFFFu, key_b, off));
-    sum_a += __shfl_xor_sync(0xFFFFFFFFu, sum_a, off);
-    sum_b += __shfl_xor_sync(0xFFFFFFFFu, sum_b, off);
-    mcount_a += __shfl_xor_sync(0xFFFFFFFFu, mcount_a, off);
-    mcount_b += __shfl_xor_sync(0xFFFFFFFFu, mcount_b, off);
-  }
-  if (q == 0) {
-    s_key[warp][g] = key_a;
-    s_key[warp][g + 8] = key_b;
-    s_sum[warp][g] = sum_a;
-    s_sum[warp][g + 8] = sum_b;
-  }
-  __syncthreads();
-
-  // Warp 0 combines the warps' partials; its quad leader q == 0 holds
-  // the lane's mask count.
-  if (warp == 0 && q == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = g + 8 * h;
-      const int lane = lane0 + r;
-      if (lane >= lanes) continue;
-      unsigned long long key = 0ull;
-      int sum = 0;
-#pragma unroll
-      for (int p = 0; p < kWarps; ++p) {
-        key = max_u64(key, s_key[p][r]);
-        sum += s_sum[p][r];
-      }
-      const int best = (int)(key >> 32) - 1;
-      int32_t* o = out + (size_t)lane * 4;
-      o[0] = best;
-      o[1] = best < 0 ? -1 : (int)(0xFFFFFFFFu - (uint32_t)key);
-      o[2] = sum;
-      o[3] = h == 0 ? mcount_a : mcount_b;
-    }
-  }
+  combine_and_store(best_a, arg_a, sum_a, best_b, arg_b, sum_b, mcount_a,
+                    mcount_b, warp, g, q, lane0, lanes, s_key, s_sum, out);
 }
 
 // The wide path (w > 32): count_stats_kernel with the k-steps a loop and
@@ -241,66 +266,11 @@ count_stats_wide_kernel(const uint32_t* __restrict__ table,
       const uint32_t b1 = vrow < n && in1 ? row[k1] : 0u;
       bmma_and_popc(d, a, b0, b1);
     }
-    // From here on as count_stats_kernel.
-    const int shift = 8 * (tile & 3) + 2 * q;
-    const uint32_t va = ina ? valid[(size_t)la * w + i] >> shift : 0u;
-    const uint32_t vb = inb ? valid[(size_t)lb * w + i] >> shift : 0u;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int v = v0 + 2 * q + c;
-      if (v < n) {
-        if ((va >> c) & 1u) {
-          sum_a += d[c];
-          if (d[c] > best_a) { best_a = d[c]; arg_a = v; }
-        }
-        if ((vb >> c) & 1u) {
-          sum_b += d[2 + c];
-          if (d[2 + c] > best_b) { best_b = d[2 + c]; arg_b = v; }
-        }
-      }
-    }
+    fold_tile(d, v0, i, tile, q, n, w, valid, la, lb, ina, inb, best_a,
+              arg_a, sum_a, best_b, arg_b, sum_b);
   }
-
-  unsigned long long key_a = best_a < 0 ? 0ull : key_of(best_a, arg_a);
-  unsigned long long key_b = best_b < 0 ? 0ull : key_of(best_b, arg_b);
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    key_a = max_u64(key_a, __shfl_xor_sync(0xFFFFFFFFu, key_a, off));
-    key_b = max_u64(key_b, __shfl_xor_sync(0xFFFFFFFFu, key_b, off));
-    sum_a += __shfl_xor_sync(0xFFFFFFFFu, sum_a, off);
-    sum_b += __shfl_xor_sync(0xFFFFFFFFu, sum_b, off);
-    mcount_a += __shfl_xor_sync(0xFFFFFFFFu, mcount_a, off);
-    mcount_b += __shfl_xor_sync(0xFFFFFFFFu, mcount_b, off);
-  }
-  if (q == 0) {
-    s_key[warp][g] = key_a;
-    s_key[warp][g + 8] = key_b;
-    s_sum[warp][g] = sum_a;
-    s_sum[warp][g + 8] = sum_b;
-  }
-  __syncthreads();
-
-  if (warp == 0 && q == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = g + 8 * h;
-      const int lane = lane0 + r;
-      if (lane >= lanes) continue;
-      unsigned long long key = 0ull;
-      int sum = 0;
-#pragma unroll
-      for (int p = 0; p < kWarps; ++p) {
-        key = max_u64(key, s_key[p][r]);
-        sum += s_sum[p][r];
-      }
-      const int best = (int)(key >> 32) - 1;
-      int32_t* o = out + (size_t)lane * 4;
-      o[0] = best;
-      o[1] = best < 0 ? -1 : (int)(0xFFFFFFFFu - (uint32_t)key);
-      o[2] = sum;
-      o[3] = h == 0 ? mcount_a : mcount_b;
-    }
-  }
+  combine_and_store(best_a, arg_a, sum_a, best_b, arg_b, sum_b, mcount_a,
+                    mcount_b, warp, g, q, lane0, lanes, s_key, s_sum, out);
 }
 
 template <int KS>

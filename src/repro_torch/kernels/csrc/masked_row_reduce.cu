@@ -10,12 +10,13 @@
 // select[l]; bits at or above n select nothing; an empty selection gives
 // the identity, 0 for OR and 0xFFFFFFFF for AND.
 //
-// What bounds it.  One bitwise operation per (selected vertex, word): at
-// the solver's shape (n = 300, w = 10, L = 4096, half the bits set) that is
-// 6.1 M operations against 0.34 MB of traffic (the table, 12 KB, is read
-// once per block from L2), so the bound is the 32-bit logic rate (64 per
-// clock per SM on compute capability 9.0, the CUDA C++ Programming Guide's
-// throughput table), not memory.
+// What bounds it.  One bitwise fold per (selected vertex, word), and one
+// three-input LOP3 folds two of them (acc | a | b): at the solver's shape
+// (n = 300, w = 10, L = 4096, half the bits set) that is 3.1 M LOP3s
+// against 0.34 MB of traffic (the table, 12 KB, is read once per block
+// from L2), so the bound is the 32-bit logic rate (64 per clock per SM on
+// compute capability 9.0, the CUDA C++ Programming Guide's throughput
+// table), not memory.
 //
 // Design: branch-free on the CUDA cores.  Walking each lane's set bits (the
 // first design) makes a dependent chain per selected vertex: find the bit,
@@ -35,8 +36,8 @@
 //     lanes;
 //   * REDUX (__reduce_or_sync / __reduce_and_sync) folds each (lane, word)
 //     over the warp's 32 vertex classes.
-// It does n * w operations where the bound counts selected * w (twice as
-// many at half density), with no dependent step.  WC, the words a pass
+// It does n * w LOP3s where the bound counts selected * w / 2 (four times
+// as many at half density), with no dependent step.  WC, the words a pass
 // holds in registers, is a template bound; rows of more than 16 words run
 // in passes of at most 16, so no budget of registers or shared memory
 // grows with w or n.  Of 1 to 8 lanes a warp and 4 to 32 warps a block,

@@ -47,11 +47,17 @@ popcount_reduce_kernel(const uint32_t* __restrict__ rows,
 
 __global__ void launch_floor_kernel() {}
 
-// The sub-warp width for rows of w words.
-int sub_warp(int w) {
+// The launch for rows of w words: a sub-warp of sw threads per row (w
+// rounded up to a power of two, at most 32) and the blocks that cover the
+// lanes.  Both entry points launch on it.
+struct Grid {
+  int sw, blocks;
+};
+
+Grid grid_of(int lanes, int w) {
   int sw = 1;
   while (sw < w && sw < 32) sw <<= 1;
-  return sw;
+  return {sw, (lanes + kThreads / sw - 1) / (kThreads / sw)};
 }
 
 }  // namespace
@@ -64,27 +70,26 @@ extern "C" int popcount_reduce_launch(const void* rows, void* out, int lanes,
   const auto* r = static_cast<const uint32_t*>(rows);
   auto* o = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  const int sw = sub_warp(w);
-  const int blocks = (lanes + kThreads / sw - 1) / (kThreads / sw);
-  switch (sw) {
-    case 1: popcount_reduce_kernel<1><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
-    case 2: popcount_reduce_kernel<2><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
-    case 4: popcount_reduce_kernel<4><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
-    case 8: popcount_reduce_kernel<8><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
-    case 16: popcount_reduce_kernel<16><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
-    default: popcount_reduce_kernel<32><<<blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+  const Grid g = grid_of(lanes, w);
+  switch (g.sw) {
+    case 1: popcount_reduce_kernel<1><<<g.blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    case 2: popcount_reduce_kernel<2><<<g.blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    case 4: popcount_reduce_kernel<4><<<g.blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    case 8: popcount_reduce_kernel<8><<<g.blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    case 16: popcount_reduce_kernel<16><<<g.blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
+    default: popcount_reduce_kernel<32><<<g.blocks, kThreads, 0, s>>>(r, o, lanes, w); break;
   }
   return (int)cudaGetLastError();
 }
 
-// An empty kernel launched with popcount_reduce's grid and block for
-// (lanes, w): the least time any kernel of that launch takes.  Not a kernel
-// of the library: chip_smoke.py times it beside popcount_reduce.
+// An empty kernel launched on popcount_reduce's grid and block for
+// (lanes, w), from the same grid_of: the least time any kernel of that
+// launch takes.  Not a kernel of the library: chip_smoke.py times it
+// beside popcount_reduce.
 extern "C" int popcount_reduce_floor_launch(int lanes, int w, void* stream) {
   if (lanes < 1 || w < 0) return (int)cudaErrorInvalidValue;
-  const int sw = sub_warp(w);
-  const int blocks = (lanes + kThreads / sw - 1) / (kThreads / sw);
-  launch_floor_kernel<<<blocks, kThreads, 0,
+  const Grid g = grid_of(lanes, w);
+  launch_floor_kernel<<<g.blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
