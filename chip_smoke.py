@@ -5,6 +5,9 @@
     python3 chip_smoke.py --sass-against OTHER/src/repro_torch/kernels/build
         # the same, and phase 1 compares each kernel function's SASS with
         # another tree's build of the same source (built there first)
+    python3 chip_smoke.py --telemetry-repeats 3
+        # the same, with 3 pairs of traced and bare drains in phases 15
+        # and 17 (in turns) to time telemetry's cost against the spread
 
 Phases (any failure raises and exits non-zero):
 
@@ -72,8 +75,24 @@ Phases (any failure raises and exits non-zero):
      ``Solver.solve`` with every ``count_stats`` launch held against the
      plain version on its live inputs; one round at 16 lanes on the card
      and on the CPU, identical ``SolveStats`` and lanes; ``count_stats``
-     timed at n = 1100 and n = 1500 (w = 47); then the ``kernels`` line
-     for all six kernels, and the seconds each phase took.
+     timed at n = 1100 and n = 1500 (w = 47);
+ 15. telemetry on the card: ``vc gnp:100:10:7`` drained at 1024 lanes
+     with ``trace_path`` and ``metrics=True`` and with neither: equal
+     ``SolveStats``, bitwise equal lanes, the optimum 69; the trace read
+     back by the port's ``obs.trace.read_trace`` (every record validated),
+     its last summary the run's nodes and rounds, the snapshot's
+     ``engine_nodes`` the run's nodes; each drain's wall time printed, and
+     the host time spent inside the collector's calls;
+ 16. ``vc cell60`` at 4096 lanes for the bootstrap round and 2 more,
+     traced against bare, the same checks;
+ 17. phase 7's drain again, traced and metered: phase 7's results,
+     ticket states, rounds and lanes; the trace validates and its
+     ``retire`` records are the retirements;
+ 18. subset sum (``SUBSET_SUM``, n = 36) drained at 1024 lanes on the card
+     to the optimum of the port's ``serial_rb``, with the CPU's
+     ``SolveStats`` and lanes, and no kernel launch (it has no kernel);
+     then the ``kernels`` line for all six kernels, and the seconds each
+     phase took.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -83,6 +102,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -163,6 +183,13 @@ WIDE = ("vc", "gnp:1100:1:3")
 WIDE_LANES = 1024
 WIDE_BOOT, WIDE_ROUNDS = 1, 2
 WIDE_TIMED = (("gnp:1100:1:3", 1024), ("gnp:1500:1:3", 1024))
+#: Phases 15-17: telemetry on the card, traced against bare.  Traces go to
+#: ``TRACES``; ``--telemetry-repeats`` sets the pairs of phases 15 and 17.
+TELEMETRY_DRAIN = DRAIN[0]
+TRACES = ROOT / "chiprun_out" / "traces"
+#: Phase 18: subset sum at 1024 lanes (n >= 30; on an H100 it drains in
+#: about 4 s, and so does its twin on the host's CPU).
+SUBSET_SUM = "ss:36:0"
 #: The kernel library's phases.  The bitset pair at cell60's shape and a
 #: sweep; attention at the full width of two of the repo's model
 #: configurations (src/repro/configs: qwen2_7b, gemma2_27b) and a sweep
@@ -323,23 +350,31 @@ def phase_parity(report):
 # -- phases 3 and 4 ---------------------------------------------------------
 
 def run_solve(problem, instance, lanes, device, max_rounds=100000,
-              bootstrap_rounds=4):
+              bootstrap_rounds=4, trace_path=None):
+    """One ``Solver.solve`` with the launch counts set to 0 just before;
+    with ``trace_path``, traced there and metered.  Returns (result, host
+    ms, count_stats launches, the solver)."""
     from repro_torch import registry
     from repro_torch.kernels import bitset_ops
     from repro_torch.solver import Solver, SolverConfig
     cfg = SolverConfig(lanes=lanes, steps_per_round=64,
                        bootstrap_rounds=bootstrap_rounds, bootstrap_steps=8,
-                       max_rounds=max_rounds, device=device)
+                       max_rounds=max_rounds, device=device,
+                       trace_path=None if trace_path is None
+                       else str(trace_path),
+                       metrics=trace_path is not None)
     handle = registry.problem(problem, instance)
+    solver = Solver(cfg)
     bitset_ops.reset_launches()
-    ms, res = sync_ms(lambda: Solver(cfg).solve(handle))
+    ms, res = sync_ms(lambda: solver.solve(handle))
     launches = bitset_ops.LAUNCHES["count_stats"]
-    return res, ms, launches
+    return res, ms, launches, solver
 
 
 def phase_drain(report):
     for problem, instance, want in DRAIN:
-        res, ms, launches = run_solve(problem, instance, DRAIN_LANES, DEV)
+        res, ms, launches, _ = run_solve(problem, instance, DRAIN_LANES,
+                                         DEV)
         s = res.stats
         print(f"phase 3: {problem} {instance} lanes={DRAIN_LANES}: "
               f"optimum={s.best} "
@@ -356,8 +391,8 @@ def phase_drain(report):
         report["launches"]["count_stats"] += launches
 
     # The same drained solve on the card and on the CPU.
-    gpu, gpu_ms, launches = run_solve(*TWIN, DEV)
-    cpu, cpu_ms, _ = run_solve(*TWIN, "cpu")
+    gpu, gpu_ms, launches, _ = run_solve(*TWIN, DEV)
+    cpu, cpu_ms, _, _ = run_solve(*TWIN, "cpu")
     print(f"phase 3: {' '.join(map(str, TWIN))} (problem, instance, lanes)"
           f"\n  cuda {tuple(gpu.stats)} "
           f"({gpu_ms:.0f} ms, {launches} launches)\n  cpu  "
@@ -391,8 +426,8 @@ def phase_cell60(report, rounds_after_boot=2):
     # (a) The main path: Solver.solve for 4 bootstrap + N main rounds.  The
     # root's bound, ceil(m / max degree) = 150, is the optimum of this
     # 4-regular analogue, so the search may drain before N rounds.
-    res, ms, launches = run_solve("vc", "cell60", lanes_n, DEV,
-                                  max_rounds=4 + rounds_after_boot)
+    res, ms, launches, _ = run_solve("vc", "cell60", lanes_n, DEV,
+                                     max_rounds=4 + rounds_after_boot)
     s = res.stats
     drained = int(res.lanes.active.sum()) == 0
     print(f"phase 4: vc cell60 lanes={lanes_n} rounds={s.rounds}: "
@@ -639,7 +674,8 @@ def phase_timing(cell60_lanes, report):
                 masks="cell60, live masks after the split rounds")
 
     problem, instance, _ = DRAIN[0]
-    res, _, _ = run_solve(problem, instance, DRAIN_LANES, DEV, max_rounds=14)
+    res, _, _, _ = run_solve(problem, instance, DRAIN_LANES, DEV,
+                             max_rounds=14)
     alive = live_alive(res.lanes)
     small = dict(kernel_times(words(parse_graph_instance(instance).adj, DEV),
                               alive, alive, clock_hz, sms),
@@ -724,10 +760,11 @@ def phase_stacked_parity(report):
 
 # -- phases 7 to 9 ----------------------------------------------------------
 
-def new_service(device, lanes, steps, max_n, slots):
+def new_service(device, lanes, steps, max_n, slots, **telemetry):
     from repro_torch.solver import Solver, SolverConfig
     return Solver(SolverConfig(lanes=lanes, steps_per_round=steps,
-                               device=device)).serve(max_n=max_n, slots=slots)
+                               device=device, **telemetry)).serve(
+        max_n=max_n, slots=slots)
 
 
 def submit_all(svc, mix):
@@ -800,6 +837,7 @@ def phase_service(report):
                  for rid, r in results.items()})
     report["launches"]["stacked_count_stats"] += launches[
         "stacked_count_stats"]
+    return svc, ms
 
 
 def phase_service_steps(report, check_rounds=3):
@@ -1555,9 +1593,9 @@ def phase_wide(report):
 
     bitset_ops.count_stats = checked_kernel      # bitset_degree's lookup
     try:
-        res, ms, launches = run_solve(problem, instance, WIDE_LANES, DEV,
-                                      max_rounds=rounds,
-                                      bootstrap_rounds=WIDE_BOOT)
+        res, ms, launches, _ = run_solve(problem, instance, WIDE_LANES,
+                                         DEV, max_rounds=rounds,
+                                         bootstrap_rounds=WIDE_BOOT)
     finally:
         bitset_ops.count_stats = kernel
     s = res.stats
@@ -1626,6 +1664,234 @@ def phase_wide(report):
               f"popcounts)", flush=True)
     report["wide_timing"] = timed_cases
     return timed_cases
+
+
+# -- phases 15 to 18: telemetry on the card, and subset sum ----------------
+
+def check_trace(path, nodes, rounds, snap, what):
+    """Read ``path`` back through the port's ``read_trace`` (which
+    validates every record against the schema) and hold its last summary
+    and the metrics snapshot to the run's own counts."""
+    from repro_torch.obs.trace import read_trace
+    records = read_trace(str(path))
+    kinds = [r["t"] for r in records]
+    check(kinds[0] == "meta" and records[0]["backend"] == DEV,
+          f"{what}: trace does not open with a {DEV} meta record")
+    summary = [r for r in records if r["t"] == "summary"][-1]
+    check(summary["nodes"] == nodes == sum(summary["lane_nodes"]),
+          f"{what}: trace summary nodes {summary['nodes']} (lanes "
+          f"{sum(summary['lane_nodes'])}) != {nodes}")
+    check(summary["rounds"] == rounds == kinds.count("round"),
+          f"{what}: trace has {kinds.count('round')} rounds, summary "
+          f"{summary['rounds']}, run {rounds}")
+    check(snap.value("engine_nodes") == nodes,
+          f"{what}: metrics engine_nodes {snap.value('engine_nodes')} != "
+          f"{nodes}")
+    return records
+
+
+@contextlib.contextmanager
+def collector_clock():
+    """Host milliseconds spent inside the telemetry collector's calls
+    (its one copy a round included), accumulated into the yielded list
+    while the ``with`` block runs.  The collector copies after the
+    round's open-work readback, when the card has no work queued, so this
+    is what telemetry adds to a round."""
+    from repro_torch.obs.collect import RoundCollector
+    spent = [0.0]
+    saved = {name: getattr(RoundCollector, name) for name in
+             ("start", "before_round", "after_round", "lifecycle", "finish")}
+
+    def timed(fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[0] += (time.perf_counter() - t0) * 1e3
+        return wrapper
+
+    for name, fn in saved.items():
+        setattr(RoundCollector, name, timed(fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(RoundCollector, name, fn)
+
+
+def alternate(repeats, first):
+    """Run kinds in turns: ``first`` then the other, the other then
+    ``first``, and so on, ``repeats`` pairs."""
+    other = "bare" if first == "traced" else "traced"
+    for i in range(repeats):
+        yield from ((first, other) if i % 2 == 0 else (other, first))
+
+
+def telemetry_solves(report, problem, instance, lanes, phase, repeats,
+                     **kw):
+    """``repeats`` pairs of the same solve traced and bare, in turns; the
+    launch counts set to 0 before each.  Returns the runs by kind."""
+    runs = {"traced": [], "bare": []}
+    for kind in alternate(repeats, "traced"):
+        path = (TRACES / f"{instance.replace(':', '_')}_"
+                         f"{len(runs['traced'])}.jsonl"
+                if kind == "traced" else None)
+        with collector_clock() as spent:
+            res, ms, launches, solver = run_solve(problem, instance, lanes,
+                                                  DEV, trace_path=path, **kw)
+        s = res.stats
+        print(f"phase {phase}: {problem} {instance} lanes={lanes} {kind}: "
+              f"wall={ms:.1f} ms rounds={s.rounds} nodes={s.nodes} "
+              f"count_stats launches={launches}" + (
+                  f", in the collector {spent[0]:.1f} ms "
+                  f"({spent[0] / s.rounds:.2f} ms a round)"
+                  if path is not None else ""), flush=True)
+        check(launches > 0, f"{instance} {kind}: count_stats never launched")
+        report["launches"]["count_stats"] += launches
+        if path is not None:
+            check_trace(path, s.nodes, s.rounds, solver.metrics(),
+                        f"{instance} traced")
+        runs[kind].append(dict(res=res, wall_ms=ms, launches=launches,
+                               collector_ms=spent[0]))
+    want = runs["bare"][0]["res"]
+    for run in runs["traced"] + runs["bare"]:
+        check(run["res"].stats == want.stats,
+              f"{instance}: SolveStats differ with telemetry on and off")
+        check_same_lanes(run["res"].lanes, want.lanes,
+                         f"{instance} telemetry on/off")
+    report.setdefault("telemetry", {})[instance] = {
+        kind: [{k: v for k, v in r.items() if k != "res"} for r in rs]
+        for kind, rs in runs.items()}
+    report["telemetry"][instance]["stats"] = want.stats._asdict()
+    walls = {k: [round(r["wall_ms"], 1) for r in rs]
+             for k, rs in runs.items()}
+    print(f"phase {phase}: {instance}: traced and bare give equal "
+          f"SolveStats and bitwise equal lanes; every trace read back and "
+          f"validated, its summary the run's; wall ms traced "
+          f"{walls['traced']}, bare {walls['bare']}", flush=True)
+    return want
+
+
+def phase_telemetry_drain(report, repeats):
+    """``TELEMETRY_DRAIN`` drained at 1024 lanes with ``trace_path`` and
+    ``metrics=True`` and with neither, in turns."""
+    problem, instance, want = TELEMETRY_DRAIN
+    res = telemetry_solves(report, problem, instance, DRAIN_LANES, 15,
+                           repeats)
+    check(res.stats.best == want, f"{instance}: optimum {res.stats.best} "
+                                  f"!= {want}")
+
+
+def phase_telemetry_cell60(report):
+    """vc cell60 at 4096 lanes: the bootstrap round and 2 more, traced and
+    bare."""
+    telemetry_solves(report, "vc", "cell60", CELL60_LANES, 16, 1,
+                     bootstrap_rounds=1, max_rounds=3)
+
+
+def phase_telemetry_service(report, bare_svc, bare_ms, repeats):
+    """Phase 7's drain again with ``trace_path`` and ``metrics=True``: the
+    same results, ticket states and rounds as phase 7's untraced drain
+    (``bare_svc``); the trace validates and its ``retire`` records are the
+    retirements.  With ``repeats`` > 1, more traced and bare drains in
+    turns (times only)."""
+    from repro_torch.kernels import bitset_ops
+    cfg = SERVICE
+    walls = {"traced": [], "bare": [bare_ms], "collector": []}
+    kinds = ["traced"] + list(alternate(repeats - 1, "bare"))
+    for i, kind in enumerate(kinds):
+        path = TRACES / f"service_{i}.jsonl"
+        tele = (dict(trace_path=str(path), metrics=True)
+                if kind == "traced" else {})
+        svc = new_service(DEV, cfg["lanes"], cfg["steps"], cfg["max_n"],
+                          cfg["slots"], **tele)
+        submit_all(svc, [(f, sp, {}) for f, sp, _ in SERVICE_MIX])
+        bitset_ops.reset_launches()
+        with collector_clock() as spent:
+            ms, results = sync_ms(svc.drain)
+        launches = bitset_ops.LAUNCHES["stacked_count_stats"]
+        check(launches > 0, "traced service: stacked_count_stats never "
+                            "launched")
+        report["launches"]["stacked_count_stats"] += launches
+        walls[kind].append(ms)
+        if kind == "traced":
+            walls["collector"].append(spent[0])
+        print(f"phase 17: service {kind}: wall={ms:.1f} ms rounds="
+              f"{svc.rounds} stacked_count_stats launches={launches}" + (
+                  f", in the collector {spent[0]:.1f} ms "
+                  f"({spent[0] / svc.rounds:.2f} ms a round)"
+                  if kind == "traced" else ""), flush=True)
+        check_optima(results, f"service {kind}")
+        check(svc.rounds == bare_svc.rounds,
+              f"service {kind}: {svc.rounds} rounds, untraced "
+              f"{bare_svc.rounds}")
+        check({r: t.status.value for r, t in svc.tickets.items()} ==
+              {r: t.status.value for r, t in bare_svc.tickets.items()},
+              f"service {kind}: ticket states differ from the untraced")
+        for rid, res in bare_svc.results.items():
+            got = results[rid]
+            check((got.optimum, got.status, got.admitted_round,
+                   got.retired_round) == (res.optimum, res.status,
+                                          res.admitted_round,
+                                          res.retired_round)
+                  and np.array_equal(got.payload, res.payload),
+                  f"service {kind}: rid {rid} differs from the untraced")
+        check_same_lanes(svc.lanes, bare_svc.lanes, f"service {kind}")
+        if kind == "traced":
+            records = check_trace(path, int(svc.lanes.nodes.sum()),
+                                  svc.rounds, svc.metrics(),
+                                  "traced service")
+            retired = sorted((r["rid"], r["round"]) for r in records
+                             if r["t"] == "retire")
+            check(retired == sorted((rid, res.retired_round)
+                                    for rid, res in results.items()
+                                    if res.status == "done"),
+                  f"traced service: retire records {retired} are not the "
+                  f"retirements")
+    print(f"phase 17: service traced: the untraced drain's results, ticket "
+          f"states, {bare_svc.rounds} rounds and lanes; the trace validates "
+          f"and its {len(SERVICE_MIX)} retire records are the retirements; "
+          f"wall ms traced {[round(w, 1) for w in walls['traced']]}, bare "
+          f"{[round(w, 1) for w in walls['bare']]} (the first bare is phase "
+          f"7's)", flush=True)
+    report.setdefault("telemetry", {})["service"] = dict(
+        rounds=bare_svc.rounds, **walls)
+
+
+def phase_subset_sum(report):
+    """``SUBSET_SUM`` drained at 1024 lanes on the card to the port's serial
+    optimum, with the CPU's ``SolveStats`` and lanes.  Subset sum has no
+    kernel: no launch may happen."""
+    from repro_torch.core.serial import serial_rb
+    from repro_torch.kernels import bitset_ops
+    from repro_torch.problems.subset_sum import (make_subset_sum_py,
+                                                 parse_ss_instance)
+    spec = SUBSET_SUM
+    inst = parse_ss_instance(spec)
+    t0 = time.perf_counter()
+    best, serial_nodes, _ = serial_rb(make_subset_sum_py(inst.values,
+                                                         inst.target))
+    serial_s = time.perf_counter() - t0
+    gpu, gpu_ms, _, _ = run_solve("ss", spec, DRAIN_LANES, DEV)
+    launches = sum(bitset_ops.LAUNCHES.values())
+    cpu, cpu_ms, _, _ = run_solve("ss", spec, DRAIN_LANES, "cpu")
+    print(f"phase 18: ss {spec} (n={inst.n}, target={inst.target}) lanes="
+          f"{DRAIN_LANES}: cuda {tuple(gpu.stats)} wall={gpu_ms:.1f} ms; "
+          f"cpu {tuple(cpu.stats)} wall={cpu_ms:.1f} ms; serial_rb "
+          f"optimum={best} nodes={serial_nodes} ({serial_s:.1f} s)",
+          flush=True)
+    check(gpu.stats.best == best, f"{spec}: optimum {gpu.stats.best} != "
+                                  f"serial {best}")
+    check(gpu.stats == cpu.stats, f"{spec}: SolveStats differ between cuda "
+                                  f"and cpu")
+    check_same_lanes(gpu.lanes, cpu.lanes, f"{spec} twin")
+    check(launches == 0, f"{spec}: {launches} kernel launches on a path "
+                         f"that has no kernel")
+    report["subset_sum"] = dict(spec=spec, n=inst.n, target=inst.target,
+                                stats=gpu.stats._asdict(), cuda_ms=gpu_ms,
+                                cpu_ms=cpu_ms, serial_best=best,
+                                serial_nodes=serial_nodes)
 
 
 # -- driver -----------------------------------------------------------------
@@ -1768,7 +2034,12 @@ def main(argv=None) -> int:
     ap.add_argument("--sass-against", metavar="BUILD_DIR",
                     help="another tree's kernels/build directory: phase 1 "
                          "compares each kernel function's SASS with it")
+    ap.add_argument("--telemetry-repeats", type=int, default=1, metavar="N",
+                    help="pairs of traced and bare drains in phases 15 and "
+                         "17, in turns (default 1)")
     args = ap.parse_args(argv)
+    if args.telemetry_repeats < 1:
+        ap.error("--telemetry-repeats must be >= 1")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: no card",
               file=sys.stderr)
@@ -1816,7 +2087,7 @@ def main(argv=None) -> int:
     cell60_lanes = run(4, phase_cell60, report)
     full, live, small = run(5, phase_timing, cell60_lanes, report)
     run(6, phase_stacked_parity, report)
-    run(7, phase_service, report)
+    bare_svc, bare_ms = run(7, phase_service, report)
     svc, service_inputs = run("7b", phase_service_steps, report)
     run(8, phase_service_twin, report)
     run(9, phase_checkpoints, report, svc)
@@ -1826,6 +2097,12 @@ def main(argv=None) -> int:
     attention = run(12, phase_attention, report)
     ssd = run(13, phase_ssd, report)
     wide = run(14, phase_wide, report)
+    TRACES.mkdir(parents=True, exist_ok=True)
+    run(15, phase_telemetry_drain, report, args.telemetry_repeats)
+    run(16, phase_telemetry_cell60, report)
+    run(17, phase_telemetry_service, report, bare_svc, bare_ms,
+        args.telemetry_repeats)
+    run(18, phase_subset_sum, report)
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small, *wide]),
         kernel_entry("stacked_count_stats", report, service,

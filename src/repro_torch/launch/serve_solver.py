@@ -4,7 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve_solver \\
       --instances vc:gnp:20:30:5@prio=2,ds:gnp:16:30:7@deadline=60 \\
       --lanes 32 --slots 4 [--scheduler sjf] [--device cpu] \\
-      [--ckpt svc.ckpt] [--ckpt-every 10] [--resume]
+      [--ckpt svc.ckpt] [--ckpt-every 10] [--resume] \\
+      [--trace svc.jsonl] [--metrics]
 
 Each instance spec is ``<family>:<instance>[@<attr>=<v>...]`` where
 ``<family>`` is any *servable* registered problem family and
@@ -18,9 +19,10 @@ submission) and ``budget=<nodes>`` (evict after that many search nodes).
 ``--device`` takes the place of the reference's ``--backend``: ``cuda``
 (the default; fails without a card) launches the CUDA kernels, ``cpu``
 runs the plain PyTorch path.  The per-request lines and the final
-``drained ... in R rounds`` line have the reference's format.
-``--devices``, ``--autoscale``, ``--trace`` and ``--metrics`` (the mesh
-path and telemetry) are not ported yet and are refused.
+``drained ... in R rounds`` line have the reference's format, and so have
+``--trace`` (the JSONL trace ``tools/trace_report.py`` reads) and
+``--metrics`` (the ``metrics:`` line).  ``--devices`` other than 1 and
+``--autoscale`` (the mesh path) are not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -98,20 +100,20 @@ def main() -> None:
                     help="not ported yet: only 1 is accepted")
     ap.add_argument("--autoscale", type=int, default=0,
                     help="not ported yet: only 0 is accepted")
-    ap.add_argument("--trace", default=None, help="not ported yet (refused)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a JSONL service trace (repro_torch.obs "
+                         "schema; summarize with tools/trace_report.py)")
     ap.add_argument("--metrics", action="store_true",
-                    help="not ported yet (refused)")
+                    help="collect in-process metrics and print a summary")
     args = ap.parse_args()
 
     refused = [flag for flag, value in (
         ("--devices", args.devices != 1),
-        ("--autoscale", args.autoscale != 0),
-        ("--trace", args.trace is not None),
-        ("--metrics", args.metrics)) if value]
+        ("--autoscale", args.autoscale != 0)) if value]
     if refused:
         ap.error(f"{', '.join(refused)}: not ported to repro_torch yet (the "
-                 f"service's mesh path and telemetry are ROADMAP Queue 1 "
-                 f"items 9 and 8); use python -m repro.launch.serve_solver")
+                 f"service's mesh path is ROADMAP Queue 1 item 9); use "
+                 f"python -m repro.launch.serve_solver")
     if args.resume and not args.ckpt:
         ap.error("--resume requires --ckpt")
     try:
@@ -124,7 +126,9 @@ def main() -> None:
         svc = SolverService.restore(args.ckpt, num_lanes=args.lanes,
                                     steps_per_round=args.steps_per_round,
                                     device=args.device,
-                                    scheduler=args.scheduler)
+                                    scheduler=args.scheduler,
+                                    trace_path=args.trace,
+                                    metrics=args.metrics)
         print(f"restored service: slots={svc.slot_rid} "
               f"queue={len(svc.queue)} pool={len(svc.pool)} "
               f"rounds={svc.rounds} scheduler={svc.sched.policy.name}")
@@ -138,7 +142,8 @@ def main() -> None:
         config = SolverConfig(lanes=args.lanes,
                               steps_per_round=args.steps_per_round,
                               device=args.device,
-                              scheduler=args.scheduler or "priority")
+                              scheduler=args.scheduler or "priority",
+                              trace_path=args.trace, metrics=args.metrics)
         svc = Solver(config).serve(max_n=max_n, slots=args.slots)
         rid0 = 0
     reqs = [SolveRequest(rid=rid0 + i, graph=g, family=fam, **kwargs)
@@ -156,6 +161,7 @@ def main() -> None:
                 and svc.rounds % args.ckpt_every == 0):
             svc.save(args.ckpt)
     wall = time.time() - t0
+    svc.finalize_trace()          # manual step loop: write the summary row
     by_rid = {q.rid: q for q in reqs}
     # Report over tickets AND results (checkpoints without a ticket table
     # restore in-flight slots without tickets).
@@ -179,6 +185,16 @@ def main() -> None:
     print(f"drained {len(served)} requests ({done} exact) in "
           f"{svc.rounds} rounds, {wall:.2f}s -> "
           f"{done / max(wall, 1e-9):.2f} instances/s")
+    if args.metrics:
+        snap = svc.metrics()
+        util = snap.value("lane_utilization")
+        steals = snap.value("steal_received", scope="intra")
+        print(f"metrics: nodes={snap.value('engine_nodes')} "
+              f"dispatches={snap.value('engine_dispatches')} "
+              f"util={util:.3f} steals intra={steals} "
+              f"queue_depth={snap.value('service_queue_depth')}")
+    if args.trace:
+        print(f"trace -> {args.trace}")
     if args.ckpt:
         svc.save(args.ckpt)
         print(f"service checkpoint -> {args.ckpt}")

@@ -103,12 +103,14 @@ class ProblemHandle:
 
 def register_problem(name: str, *, parse: Callable[[str], Any],
                      oracle: Callable[[Any], Any],
+                     build: Optional[Callable[[Any, str], Any]] = None,
                      pack: Optional[Callable[[Any, int], Any]] = None,
                      family_id: Optional[int] = None,
                      size: Optional[Callable[[Any], int]] = None,
                      doc: str = ""):
     """Decorator: register the decorated engine factory as family ``name``;
-    an instance reaches it as ``factory(instance, device=device)``."""
+    an instance reaches it as ``factory(instance, device=device)``, or as
+    ``build(instance, device)`` when the factory takes another signature."""
 
     def deco(factory):
         if name in _REGISTRY:
@@ -121,8 +123,9 @@ def register_problem(name: str, *, parse: Callable[[str], Any],
         if size is not None:
             kwargs["size"] = size
         _REGISTRY[name] = ProblemSpec(
-            name=name, factory=factory, builder=builder, oracle=oracle,
-            parse=parse, family_id=family_id, pack=pack, doc=doc, **kwargs)
+            name=name, factory=factory, builder=build or builder,
+            oracle=oracle, parse=parse, family_id=family_id, pack=pack,
+            doc=doc, **kwargs)
         return factory
 
     return deco

@@ -31,8 +31,11 @@ tables, queued-request heap, ticket states) through
 ``repro_torch.core.checkpoint``, in the reference's file format; restoring
 onto W' != W lanes parks surplus tasks in an instance-tagged pending pool.
 
-Not ported yet: the mesh path (``mesh``, ``resize``, ``maybe_autoscale``)
-and telemetry (``trace_path``, ``metrics``).
+Telemetry (``trace_path``, ``metrics``) rides one
+``repro_torch.obs.RoundCollector``, fed at round boundaries: its one copy
+of the lane counters per round also serves node-budget accounting.
+
+Not ported yet: the mesh path (``mesh``, ``resize``, ``maybe_autoscale``).
 """
 
 from __future__ import annotations
@@ -111,12 +114,14 @@ class SolverService:
                     on_event: Optional[Callable[[Any], None]] = None
                     ) -> "SolverService":
         """The facade constructor: lanes / steps_per_round / device /
-        scheduler / fused_steps come from a
+        scheduler / fused_steps / telemetry come from a
         :class:`repro_torch.solver.SolverConfig`."""
         return cls._create(max_n=max_n, slots=slots, num_lanes=config.lanes,
                            steps_per_round=config.steps_per_round,
                            device=config.device, scheduler=config.scheduler,
-                           fused_steps=config.fused_steps, on_event=on_event)
+                           fused_steps=config.fused_steps,
+                           trace_path=config.trace_path,
+                           metrics=config.metrics, on_event=on_event)
 
     @classmethod
     def _create(cls, **kwargs) -> "SolverService":
@@ -127,7 +132,8 @@ class SolverService:
     def _init(self, *, max_n: int, slots: int, num_lanes: int,
               steps_per_round: int = 64, device: str = "cuda",
               scheduler: Union[str, SchedulingPolicy] = "priority",
-              fused_steps: int = 1,
+              fused_steps: int = 1, trace_path: Optional[str] = None,
+              metrics: bool = False,
               on_event: Optional[Callable[[Any], None]] = None):
         self.spec = StackedSpec(n=max_n, k=slots)
         self.device = resolve_device(device)
@@ -159,6 +165,34 @@ class SolverService:
         # next placement-changing event (admission, retire/evict, pool
         # install) clears it.
         self._placement_clean = False
+
+        # Telemetry (DESIGN.md §8): one RoundCollector fed at round
+        # boundaries.
+        self.metrics_enabled = bool(metrics)
+        self._collector = None
+        if metrics or trace_path is not None:
+            from repro_torch import obs
+            self._collector = obs.RoundCollector(
+                mode="service", lanes=num_lanes, slots=slots,
+                steps_per_round=steps_per_round, fused_steps=fused_steps,
+                backend=self.device.type,
+                trace=obs.TraceWriter(trace_path) if trace_path else None)
+            self._collector.start(self.lanes)
+
+    def metrics(self):
+        """``repro_torch.obs.MetricsSnapshot`` of this service's registry,
+        or None when telemetry is off (enable via
+        ``SolverConfig(metrics=True)`` or ``trace_path=...``)."""
+        return (self._collector.snapshot()
+                if self._collector is not None else None)
+
+    def finalize_trace(self) -> None:
+        """Append a trace ``summary`` record (per-lane / per-instance
+        totals so far).  Called by :meth:`drain`; call it directly when
+        stepping rounds by hand.  Readers use the last summary."""
+        if self._collector is not None:
+            self._collector.finish(rounds=self.rounds,
+                                   best=self.lanes.best.tolist())
 
     # -- host/device plumbing ----------------------------------------------
 
@@ -222,6 +256,9 @@ class SolverService:
                 reason = f"node_budget must be >= 1, got {request.node_budget}"
         if reason is not None:
             self._emit("reject", rid=request.rid, reason=reason)
+            if self._collector is not None:
+                self._collector.lifecycle("reject", round_no=self.rounds,
+                                          rid=request.rid, reason=reason)
             raise AdmissionError(reason)
         return self.sched.enqueue(request, now_round=self.rounds,
                                   service=self)
@@ -242,11 +279,23 @@ class SolverService:
             best = result.optimum
         self.sched.resolve(rid, TicketStatus.CANCELLED, self.rounds)
         self._emit("cancel", rid=rid, best=best)
+        self._note_lifecycle("cancel", rid, best=best)
         return True
 
     def _emit(self, kind: str, **kw) -> None:
         from repro_torch.solver import emit
         emit(self.on_event, kind, round=self.rounds, **kw)
+
+    def _note_lifecycle(self, kind: str, rid: int,
+                        best: Optional[int] = None) -> None:
+        """Trace a terminal request transition with its wait/run rounds."""
+        if self._collector is None:
+            return
+        ticket = self.sched.tickets.get(rid)
+        self._collector.lifecycle(
+            kind, round_no=self.rounds, rid=rid, best=best,
+            waited=ticket.wait_rounds if ticket is not None else None,
+            ran=ticket.run_rounds if ticket is not None else None)
 
     def _host_lane_fields(self) -> Dict[str, np.ndarray]:
         return {f: _host(getattr(self.lanes, f)).copy() for f in _HOST_FIELDS}
@@ -327,6 +376,11 @@ class SolverService:
             h["t_s"][lane] += 1
             changed = True
             self._emit("admit", rid=req.rid)
+            if self._collector is not None:
+                self._collector.lifecycle(
+                    "admit", round_no=self.rounds, rid=req.rid, slot=slot,
+                    waited=(ticket.wait_rounds if ticket is not None
+                            else None))
 
         # Retarget the remaining idle lanes round-robin over live slots so
         # the next steal round can feed them (instance-scoped thieves).
@@ -375,6 +429,8 @@ class SolverService:
                 retired_round=self.rounds)
             self.sched.resolve(rid, TicketStatus.DONE, self.rounds)
             self._emit("retire", rid=rid, best=self.results[rid].optimum)
+            self._note_lifecycle("retire", rid,
+                                 best=self.results[rid].optimum)
             self.slot_rid[slot] = -1
             # Unbind the retired slot's (now idle) lanes.
             if h_inst is None:
@@ -424,10 +480,12 @@ class SolverService:
                 admitted_round=-1, retired_round=self.rounds,
                 status="expired")
             self._emit("expire", rid=rid)
+            self._note_lifecycle("expire", rid)
         for rid in running:
             result = self._evict_slot(self.slot_rid.index(rid), "expired")
             self.sched.resolve(rid, TicketStatus.EXPIRED, self.rounds)
             self._emit("expire", rid=rid, best=result.optimum)
+            self._note_lifecycle("expire", rid, best=result.optimum)
 
     def _emit_incumbents(self) -> None:
         """One ``incumbent`` event each time a slot's bound improves; pays
@@ -451,22 +509,41 @@ class SolverService:
         """One service cycle: admit -> round -> retire -> evict.  Returns
         the per-slot open-work vector."""
         track = self.sched.track_nodes()
-        self._admit_and_place()
-        nodes_before = _host(self.lanes.nodes).copy() if track else None
+        col = self._collector
+        changed = self._admit_and_place()
+        nodes_before = None
+        if col is not None:
+            # Host-side surgery (admission seeds, pool installs) bumps t_s:
+            # refresh the baseline so steal deltas cover the round only.
+            col.before_round(self.lanes, dirty=changed)
+        elif track:
+            nodes_before = _host(self.lanes.nodes).copy()
         self.lanes, open_vec = self._round(self.lanes)
         self.rounds += 1
         open_np = _host(open_vec)        # the one per-round readback
+        inst_delta = None
+        if col is not None:
+            inst_delta = col.after_round(
+                self.rounds, self.lanes, int(open_np.sum()),
+                queue_depth=self.sched.queue_depth(),
+                slot_rids=self.slot_rid)
         if track:
             # Round-granular attribution: a lane's node delta this round is
-            # charged to the instance it serves at the round boundary.
-            delta = _host(self.lanes.nodes) - nodes_before
-            inst = _host(self.lanes.inst)
+            # charged to the instance it serves at the round boundary.  The
+            # collector computes exactly this delta; without one, read back.
+            if inst_delta is None:
+                delta = _host(self.lanes.nodes) - nodes_before
+                inst = _host(self.lanes.inst)
+                inst_delta = [int(delta[inst == slot].sum())
+                              for slot in range(self.spec.k)]
             for slot in range(self.spec.k):
                 rid = self.slot_rid[slot]
-                used = int(delta[inst == slot].sum())
-                if rid >= 0 and used:
-                    self.sched.note_nodes(rid, used)
-        self._emit("round", open_work=int(open_np.sum()))
+                if rid >= 0 and inst_delta[slot]:
+                    self.sched.note_nodes(rid, int(inst_delta[slot]))
+        self._emit("round", open_work=int(open_np.sum()),
+                   metrics=(col.snapshot()
+                            if col is not None and self.metrics_enabled
+                            and self.on_event is not None else None))
         self._emit_incumbents()
         self._retire(open_np)
         self._expire()
@@ -481,6 +558,7 @@ class SolverService:
                     f"service did not drain in {max_rounds} rounds; "
                     f"slots={self.slot_rid} queue={len(self.queue)}")
             self.step_round()
+        self.finalize_trace()
         return self.results
 
     def run(self, requests: Optional[List[SolveRequest]] = None,
@@ -566,14 +644,17 @@ class SolverService:
     def restore(cls, path: str, *, num_lanes: int,
                 steps_per_round: int = 64, device: str = "cuda",
                 scheduler: Optional[Union[str, SchedulingPolicy]] = None,
-                fused_steps: int = 1,
+                fused_steps: int = 1, trace_path: Optional[str] = None,
+                metrics: bool = False,
                 on_event: Optional[Callable[[Any], None]] = None
                 ) -> "SolverService":
         """Rebuild the service onto ``num_lanes`` lanes (elastic W' != W)
         on ``device``.  Surplus in-flight tasks wait in the pending pool;
         queued requests are restored with their admission sequence, so the
         queue pops in the saved order; every ticket's state round-trips.
-        ``scheduler`` defaults to the checkpointed policy."""
+        ``scheduler`` defaults to the checkpointed policy.  With
+        ``trace_path`` / ``metrics`` the restored service is traced, its
+        deltas counted from the restored lanes."""
         extra = ckpt.read_extra(path)
         n, k = (int(x) for x in extra["spec"])
         meta = (ckpt.unpack_json(extra["sched_meta"])
@@ -584,7 +665,8 @@ class SolverService:
                           steps_per_round=steps_per_round, device=device,
                           scheduler=(meta["scheduler"] if scheduler is None
                                      else scheduler),
-                          fused_steps=fused_steps, on_event=on_event)
+                          fused_steps=fused_steps, trace_path=trace_path,
+                          metrics=metrics, on_event=on_event)
         svc.tables = StackedTables(
             adj=extra["adj"].astype(np.uint32),
             fullm=extra["fullm"].astype(np.uint32),
@@ -598,6 +680,10 @@ class SolverService:
         svc.slot_rid = [int(r) for r in extra["slot_rid"]]
         svc.slot_admitted = [int(r) for r in extra["slot_admitted"]]
         svc.rounds = int(extra["rounds"])
+        if svc._collector is not None:
+            # Re-baseline on the restored lanes so the first round's deltas
+            # exclude the carried checkpoint totals.
+            svc._collector.start(svc.lanes)
         if "slot_best_seen" in extra:     # keep the incumbent stream exact
             svc._slot_best_seen = [int(b) for b in extra["slot_best_seen"]]
 

@@ -11,9 +11,9 @@
 ``device`` takes the place of the reference's ``backend``: on "cuda" the
 node evaluation launches the CUDA kernels, on "cpu" it runs the plain
 versions.  "cuda" is the default and raises when no card is present.
-Telemetry (``trace_path``, ``metrics``) and the mesh (``mesh``,
-``max_ship``, ``autoscale``) come with later slices: a config that sets
-them is refused.
+Telemetry (``trace_path``, ``metrics``) is the reference's.  The mesh
+(``mesh``, ``max_ship``, ``autoscale``) comes with a later slice: a config
+that sets it is refused.
 """
 
 from __future__ import annotations
@@ -66,9 +66,16 @@ class SolverConfig:
         count; the instance-slot count must match the problem).
       scheduler: service admission policy name ("priority" | "sjf" |
         "fifo"), validated when the config meets :meth:`Solver.serve`.
-      mesh / max_ship / autoscale / trace_path / metrics: the reference's
-        multi-device and telemetry fields, not ported yet; setting any of
-        them raises ``ConfigError``.
+      trace_path: write a JSONL telemetry trace here (the reference's
+        ``obs.trace`` schema; render with ``tools/trace_report.py``).  The
+        search tree is bit-identical with tracing on or off (DESIGN.md
+        §8).
+      metrics: collect an in-process metrics registry, queryable as a
+        ``MetricsSnapshot`` via ``Solver.metrics()`` /
+        ``SolverService.metrics()`` and attached to "round"/"done"
+        :class:`ProgressEvent`\\ s.
+      mesh / max_ship / autoscale: the reference's multi-device fields,
+        not ported yet; setting any of them raises ``ConfigError``.
     """
 
     lanes: int = 32
@@ -110,17 +117,19 @@ class SolverConfig:
         if not isinstance(self.scheduler, str) or not self.scheduler:
             raise ConfigError(
                 f"scheduler must be a policy name, got {self.scheduler!r}")
+        if self.trace_path is not None and (
+                not isinstance(self.trace_path, str) or not self.trace_path):
+            raise ConfigError(
+                f"trace_path must be a path, got {self.trace_path!r}")
         unported = [name for name, is_set in (
             ("mesh", self.mesh is not None),
             ("max_ship", self.max_ship != 16),
-            ("autoscale", self.autoscale is not None),
-            ("trace_path", self.trace_path is not None),
-            ("metrics", bool(self.metrics))) if is_set]
+            ("autoscale", self.autoscale is not None)) if is_set]
         if unported:
             raise ConfigError(
                 f"SolverConfig {', '.join(unported)}: not ported to "
-                f"repro_torch yet (multi-GPU and telemetry are ROADMAP "
-                f"Queue 1 items 9 and 8); use the repro package for them")
+                f"repro_torch yet (multi-GPU is ROADMAP Queue 1 item 9); "
+                f"use the repro package for them")
         try:
             torch.device(self.device)
         except (RuntimeError, TypeError) as e:
@@ -138,7 +147,9 @@ EVENT_KINDS = frozenset({
 class ProgressEvent:
     """One typed progress notification.  :meth:`Solver.solve` emits
     "round" (``round``, ``open_work``, ``best``, ``lanes``) after every
-    main round and "done" when the solve drains."""
+    main round and "done" when the solve drains.  ``metrics`` carries a
+    ``repro_torch.obs.MetricsSnapshot`` on "round"/"done" events when
+    ``SolverConfig.metrics`` is set (None otherwise)."""
 
     kind: str
     round: int
@@ -148,6 +159,7 @@ class ProgressEvent:
     path: Optional[str] = None
     reason: Optional[str] = None
     lanes: Optional[Lanes] = None
+    metrics: Optional[Any] = None
 
     def __post_init__(self):
         if self.kind not in EVENT_KINDS:
@@ -192,6 +204,13 @@ class Solver:
                  on_event: Optional[EventCallback] = None):
         self.config = config or SolverConfig()
         self.on_event = on_event
+        self._obs = None          # RoundCollector of the most recent solve
+
+    def metrics(self):
+        """``repro_torch.obs.MetricsSnapshot`` of the most recent (or
+        running) :meth:`solve`, or None when telemetry was off (enable
+        with ``SolverConfig(metrics=True)`` or ``trace_path=...``)."""
+        return self._obs.snapshot() if self._obs is not None else None
 
     def _resolve(self, problem) -> BinaryProblem:
         """ProblemHandle -> BinaryProblem on the config's device; a raw
@@ -217,7 +236,8 @@ class Solver:
     def solve(self, problem) -> SolveResult:
         """Run rounds until the work drains (the paper's PARALLEL-RB on
         one device) or ``max_rounds`` is reached.  The host reads back one
-        value per round, the open-work count.
+        value per round, the open-work count; with telemetry on, the
+        collector copies the lane counters once more after it.
 
         ``resume_from`` restores a checkpoint written by either package at
         any lane count (elastic restart, paper §VII): surplus tasks wait in
@@ -251,29 +271,55 @@ class Solver:
         else:
             lanes = init_lanes(problem, cfg.lanes)
 
+        collector = None
+        if cfg.metrics or cfg.trace_path is not None:
+            from repro_torch import obs
+            collector = obs.RoundCollector(
+                mode="solve", lanes=cfg.lanes, slots=problem.num_instances,
+                steps_per_round=cfg.steps_per_round,
+                fused_steps=cfg.fused_steps, backend=lanes.idx.device.type,
+                trace=(obs.TraceWriter(cfg.trace_path)
+                       if cfg.trace_path else None))
+            collector.start(lanes)      # after restore: deltas = this run
+        self._obs = collector
+
         def feed_pool(lanes):
             nonlocal pool
             if pool:
                 lanes, pool = ckpt.install_pending(problem, lanes, pool)
             return lanes
 
+        def run_round(fn, lanes):
+            fed = bool(pool)
+            lanes = feed_pool(lanes)
+            if collector is not None:
+                collector.before_round(lanes, dirty=fed)
+            lanes, open_work = fn(lanes)
+            open_now = int(open_work.sum())
+            if collector is not None:
+                collector.after_round(rounds + 1, lanes, open_now)
+            return lanes, open_now
+
+        def snap():
+            return (collector.snapshot()
+                    if collector is not None and cfg.metrics else None)
+
         rounds, done = 0, False
         for _ in range(bootstrap_rounds):
-            lanes, open_work = boot_fn(feed_pool(lanes))
+            lanes, open_now = run_round(boot_fn, lanes)
             rounds += 1
-            if int(open_work.sum()) == 0 and not pool:
+            if open_now == 0 and not pool:
                 done = True
                 break
         while not done and rounds < cfg.max_rounds:
-            lanes, open_work = round_fn(feed_pool(lanes))
+            lanes, open_now = run_round(round_fn, lanes)
             rounds += 1
-            open_now = int(open_work.sum())
             if self.on_event is not None:
                 # The incumbent readback costs a sync: only pay it when
                 # someone is listening.
                 emit(self.on_event, "round", round=rounds,
                      open_work=open_now, best=int(lanes.best.min()),
-                     lanes=lanes)
+                     lanes=lanes, metrics=snap())
             if (cfg.checkpoint_every and cfg.checkpoint_path
                     and rounds % cfg.checkpoint_every == 0):
                 ckpt.save(cfg.checkpoint_path, lanes)
@@ -291,8 +337,11 @@ class Solver:
             lanes=int(lanes.active.shape[0]),
             t_c=int(lanes.t_c.sum()),
         )
+        if collector is not None:
+            collector.finish(rounds=rounds, best=lanes.best.tolist())
+            collector.close()
         emit(self.on_event, "done", round=rounds, open_work=0,
-             best=stats.best)
+             best=stats.best, metrics=snap())
         payload = lanes.best_payload
         if problem.num_instances == 1:
             # Single-instance API: drop the K=1 incumbent-table dim.

@@ -21,6 +21,7 @@ from repro_torch.problems.graphs import parse_graph_instance
 from repro_torch.problems.vertex_cover import make_vertex_cover_py
 from repro_torch.solver import (EVENT_KINDS, ConfigError, ProgressEvent,
                                 Solver, SolverConfig, emit)
+from test_torch_obs import records
 
 
 @pytest.mark.parametrize("family,spec", [
@@ -54,13 +55,19 @@ def run_main(module, argv, monkeypatch, capsys):
     ["--problem", "vc", "--instance", "reg:36:4:3", "--lanes", "16"],
     ["--problem", "ds", "--instance", "gnp:14:30:2", "--lanes", "8",
      "--steps-per-round", "16"],
+    ["--problem", "vc", "--instance", "gnp:20:30:2", "--lanes", "8",
+     "--metrics"],
 ])
 def test_cli_prints_the_reference_result_line(argv, monkeypatch, capsys):
-    want = result_line(run_main(j_solve, argv, monkeypatch, capsys))
-    got = result_line(run_main(solve, argv + ["--device", "cpu"],
-                               monkeypatch, capsys))
+    j_out = run_main(j_solve, argv, monkeypatch, capsys)
+    t_out = run_main(solve, argv + ["--device", "cpu"], monkeypatch, capsys)
+    got, want = result_line(t_out), result_line(j_out)
     assert got == want
     assert got.startswith("optimum=") and " T_R=" in got
+    metrics = [[l for l in out.splitlines() if l.startswith("metrics:")]
+               for out in (t_out, j_out)]
+    assert metrics[0] == metrics[1]
+    assert len(metrics[0]) == ("--metrics" in argv)
 
 
 def test_cli_refuses_cuda_without_a_card(monkeypatch, capsys):
@@ -105,12 +112,15 @@ def test_config_validation_and_events():
 
 
 def test_registry_surface():
-    assert registry.names() == ("ds", "vc")
+    assert registry.names() == ("ds", "ss", "vc")
     handle = registry.problem("vc", "gnp:20:30:1")
     assert handle.label == "vc:gnp_20_0.3_1"
     assert registry.get("ds").size(handle.instance) == 20
     with pytest.raises(registry.UnknownProblemError):
-        registry.get("ss")
+        registry.get("nope")
+    ss = registry.problem("ss", "ss:12:3")
+    assert ss.label == "ss:ss_12_3" and not ss.spec.servable
+    assert ss.build(device="cpu").max_depth == 12
     with pytest.raises(ValueError):
         registry.problem("vc", "gnp:bad")
     prob = handle.build(device="cpu")
@@ -144,15 +154,40 @@ def test_serve_cli_prints_the_reference_lines(argv, monkeypatch, capsys):
     assert got[1].startswith("drained ") and " rounds" in got[1]
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--autoscale", "4"],
-                                  ["--trace", "t.jsonl"], ["--metrics"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--autoscale", "4"]])
 def test_serve_cli_refuses_what_is_not_ported(flag, monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["serve_solver", "--device", "cpu"]
                         + flag)
     with pytest.raises(SystemExit) as e:
         serve_solver.main()
     assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not ported" in err and "item 9" in err
+
+
+@pytest.mark.parametrize("flag", ["--trace", "--metrics"])
+def test_serve_cli_telemetry_equals_the_reference(flag, tmp_path,
+                                                  monkeypatch, capsys):
+    """``--trace`` writes the reference's records; ``--metrics`` prints its
+    ``metrics:`` line; the per-request lines do not move."""
+    argv = ["--instances", "vc:gnp:16:30:5,ds:gnp:14:30:7,vc:gnp:14:25:2",
+            "--lanes", "16", "--slots", "2"]
+    extra = {}
+    for pkg in ("j", "t"):
+        extra[pkg] = ([flag, str(tmp_path / f"{pkg}.jsonl")]
+                      if flag == "--trace" else [flag])
+    j_out = run_main(j_serve_solver, argv + extra["j"], monkeypatch, capsys)
+    t_out = run_main(serve_solver, argv + extra["t"] + ["--device", "cpu"],
+                     monkeypatch, capsys)
+    assert service_lines(t_out) == service_lines(j_out)
+    if flag == "--trace":
+        got = records(tmp_path / "t.jsonl")
+        assert got == records(tmp_path / "j.jsonl")
+        assert [r["t"] for r in got].count("retire") == 3
+    else:
+        metrics = [[l for l in out.splitlines() if l.startswith("metrics:")]
+                   for out in (t_out, j_out)]
+        assert metrics[0] == metrics[1] and len(metrics[0]) == 1
 
 
 def test_solve_cli_checkpoint_and_resume(tmp_path, monkeypatch, capsys):

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CUDA kernels against their plain
 versions on CUDA tensors (the four bitset kernels bitwise, attention and
 the SSD scan within the reference's tolerances), and a solve and a
-service drain on the card against the same on the CPU.  This file imports neither ``jax`` nor
+service drain on the card against the same on the CPU, with telemetry
+off and on.  This file imports neither ``jax`` nor
 ``repro``, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -10,12 +11,15 @@ Each test decides inside itself whether a card is present and skips
 without one.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import registry
-from repro_torch.convert import to_numpy, words
+from repro_torch.convert import words
+from repro_torch.core.api import tree_leaves
 from repro_torch.kernels import _build, bitset_degree, bitset_ops, ops, ref
 from repro_torch.problems.graphs import (circulant_graph, full_mask,
                                          num_words, parse_graph_instance)
@@ -31,6 +35,19 @@ def need_card():
 def random_words(rng, shape):
     return rng.randint(0, 2 ** 32, size=shape, dtype=np.uint64).astype(
         np.uint32)
+
+
+def trace_records(path):
+    """A trace's records with ``meta.backend`` (the device type) dropped."""
+    out = [json.loads(line) for line in open(path)]
+    assert out[0]["t"] == "meta"
+    out[0].pop("backend")
+    return out
+
+
+def assert_lanes_equal(a, b):
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        assert torch.equal(x.cpu(), y.cpu())
 
 
 @pytest.mark.gpu
@@ -124,10 +141,38 @@ def test_wide_solve_on_the_card_equals_the_cpu():
     assert bitset_ops.LAUNCHES["count_stats"] > 0
     cpu = Solver(SolverConfig(device="cpu", **cfg)).solve(handle)
     assert gpu.stats == cpu.stats
-    for a, b in zip(to_numpy(gpu.lanes), to_numpy(cpu.lanes)):
-        for x, y in zip(*((v,) if isinstance(v, np.ndarray) else tuple(v)
-                          for v in (a, b))):
-            assert np.array_equal(x, y)
+    assert_lanes_equal(gpu.lanes, cpu.lanes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,spec,lanes", [("vc", "gnp:40:20:3", 32),
+                                               ("ss", "ss:16:2", 16)])
+def test_traced_solve_on_the_card_equals_untraced(family, spec, lanes,
+                                                   tmp_path):
+    """Telemetry on the card is observation only: the traced solve gives
+    the untraced one's ``SolveStats`` and lanes, and its trace is the
+    CPU's, record for record, with ``meta.backend`` "cuda"."""
+    need_card()
+    handle = registry.problem(family, spec)
+    cfg = dict(lanes=lanes, steps_per_round=16, bootstrap_rounds=2)
+    runs = {}
+    for name, device, tele in (
+            ("bare", "cuda", {}),
+            ("cuda", "cuda", dict(metrics=True,
+                                  trace_path=str(tmp_path / "cuda.jsonl"))),
+            ("cpu", "cpu", dict(metrics=True,
+                                trace_path=str(tmp_path / "cpu.jsonl")))):
+        solver = Solver(SolverConfig(device=device, **cfg, **tele))
+        runs[name] = (solver, solver.solve(handle))
+    bare, traced = runs["bare"][1], runs["cuda"][1]
+    assert traced.stats == bare.stats == runs["cpu"][1].stats
+    assert_lanes_equal(traced.lanes, bare.lanes)
+    assert trace_records(tmp_path / "cuda.jsonl") == \
+        trace_records(tmp_path / "cpu.jsonl")
+    assert json.loads(open(tmp_path / "cuda.jsonl").readline())[
+        "backend"] == "cuda"
+    assert runs["cuda"][0].metrics().value("engine_nodes") == \
+        traced.stats.nodes
 
 
 @pytest.mark.gpu
@@ -163,15 +208,21 @@ def test_stacked_kernel_equals_plain_version(k, n):
 
 
 @pytest.mark.gpu
-def test_service_on_the_card_equals_the_cpu():
+@pytest.mark.parametrize("traced", [False, True])
+def test_service_on_the_card_equals_the_cpu(traced, tmp_path):
+    """The card's service drain equals the CPU's; traced, both traces are
+    the same record for record."""
     need_card()
     mix = [("vc", "gnp:20:30:5", {}), ("ds", "gnp:16:30:7", {}),
            ("vc", "reg:18:3:2", {"priority": 2}),
            ("ds", "gnp:18:25:4", {"node_budget": 40})]
     runs = {}
     for device in ("cuda", "cpu"):
+        tele = (dict(metrics=True, trace_path=str(tmp_path / f"{device}.jsonl"))
+                if traced else {})
         svc = Solver(SolverConfig(lanes=16, steps_per_round=6,
-                                  device=device)).serve(max_n=20, slots=2)
+                                  device=device, **tele)).serve(max_n=20,
+                                                                slots=2)
         for rid, (f, spec, kw) in enumerate(mix):
             svc.submit(SolveRequest(rid=rid, graph=parse_graph_instance(spec),
                                     family=f, **kw))
@@ -187,10 +238,11 @@ def test_service_on_the_card_equals_the_cpu():
         assert (a.optimum, a.status, a.retired_round) == \
             (b.optimum, b.status, b.retired_round)
         assert np.array_equal(a.payload, b.payload)
-    for a, b in zip(to_numpy(gpu.lanes), to_numpy(cpu.lanes)):
-        for x, y in zip(*((v,) if isinstance(v, np.ndarray) else tuple(v)
-                          for v in (a, b))):
-            assert np.array_equal(x, y)
+    assert_lanes_equal(gpu.lanes, cpu.lanes)
+    if traced:
+        assert trace_records(tmp_path / "cuda.jsonl") == \
+            trace_records(tmp_path / "cpu.jsonl")
+        assert gpu.metrics().to_dict() == cpu.metrics().to_dict()
 
 
 @pytest.mark.gpu

@@ -34,7 +34,9 @@ def test_port_sources_import_no_jax_or_reference():
     for new in ("core/checkpoint.py", "service/__init__.py",
                 "service/batch_problem.py", "service/driver.py",
                 "service/scheduler.py", "service/ticket.py",
-                "launch/serve_solver.py"):
+                "launch/serve_solver.py", "obs/__init__.py",
+                "obs/registry.py", "obs/trace.py", "obs/collect.py",
+                "problems/subset_sum.py"):
         assert PORT / new in files, new
     bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
            for p in files for line, root in _imported_roots(p)
@@ -50,6 +52,7 @@ def test_port_sources_import_no_jax_or_reference():
     "repro_torch.service",
     "repro_torch.launch.serve_solver",
     "repro_torch.kernels.ops",
+    "repro_torch.obs",
 ])
 def test_port_imports_with_jax_blocked(module):
     """A fresh interpreter with ``jax`` and ``repro`` made unimportable
@@ -60,7 +63,7 @@ def test_port_imports_with_jax_blocked(module):
         "    sys.modules[name] = None\n"
         f"import {module}\n"
         "from repro_torch import registry\n"
-        "assert registry.names() == ('ds', 'vc'), registry.names()\n"
+        "assert registry.names() == ('ds', 'ss', 'vc'), registry.names()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

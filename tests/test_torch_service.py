@@ -239,7 +239,7 @@ def test_round_from_carried_reference_state():
     np.testing.assert_array_equal(t_open.numpy(), np.asarray(j_open))
 
 
-def test_submit_rejects_what_the_reference_rejects():
+def test_submit_rejects_what_the_reference_rejects(tmp_path):
     jsvc, tsvc = services()
     events = []
     tsvc.on_event = events.append
@@ -274,11 +274,17 @@ def test_submit_rejects_what_the_reference_rejects():
     with pytest.raises(ConfigError):
         Solver(SolverConfig(device="cpu", scheduler="lifo")).serve(
             max_n=8, slots=1)
-    for unported in (dict(mesh=object()), dict(trace_path="t.jsonl"),
-                     dict(metrics=True), dict(autoscale=object()),
+    for unported in (dict(mesh=object()), dict(autoscale=object()),
                      dict(max_ship=4)):
         with pytest.raises(ConfigError, match="not ported"):
             SolverConfig(device="cpu", **unported)
+    # Telemetry is ported: the service takes it, and an empty path is
+    # refused as the reference refuses it.
+    svc = Solver(SolverConfig(device="cpu", trace_path=str(
+        tmp_path / "t.jsonl"), metrics=True)).serve(max_n=8, slots=1)
+    assert svc.metrics() is not None
+    with pytest.raises(ConfigError):
+        SolverConfig(device="cpu", trace_path="")
 
 
 def test_tickets_resolve_through_the_port():
