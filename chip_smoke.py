@@ -91,8 +91,33 @@ Phases (any failure raises and exits non-zero):
  18. subset sum (``SUBSET_SUM``, n = 36) drained at 1024 lanes on the card
      to the optimum of the port's ``serial_rb``, with the CPU's
      ``SolveStats`` and lanes, and no kernel launch (it has no kernel);
+ 19. the mesh: ``vc gnp:100:10:7`` on 4 shards of ``cuda:0`` x 256 lanes
+     drained through ``Solver.solve`` to 69 with tasks crossing shards,
+     beside phase 3's unsharded drain at 1024 lanes; its first 5 rounds,
+     driven by hand (bootstrap rounds emit no event) and the last held
+     against the solve's, bitwise the CPU's 4 shards; the next round
+     split into the shards' expand, their intra-shard steals, the
+     cross-device steal and the one replay of the receivers; a one-shard
+     mesh giving the unsharded ``SolveStats`` and lanes;
+ 20. ``vc cell60`` on 4 shards x 1024 lanes, the bootstrap round and 2
+     more, bitwise the CPU's for as many rounds as the CPU twin's budget
+     runs;
+ 21. phase 19's drain as saved after round 10, resumed on 2 shards and on
+     one device, each drained to 69;
+ 22. phase 7's mix on the sharded service (2 shards x 512), resized to 4 x
+     256 at round 12, saved at round 24 and restored on 2 x 512: every
+     result the serial optimum; results, ticket states, rounds and resize
+     events the CPU's run of the same schedule; the traces validate and
+     hold the ``resize``;
+ 23. with a second card, phase 19's drain on ``cuda:0`` and ``cuda:1``
+     (else one line saying none is present);
+ 24. the autotuner: ``choose`` and ``predict_cost`` at phase 4's shape;
+     both routes of both count kernels bitwise equal to the plain
+     versions from 1 to 32 words a row; ``measured_choice`` timing both
+     routes at cell60's root shape and the service's;
      then the ``kernels`` line for all six kernels, and the seconds each
-     phase took.
+     phase took.  The CPU's side of phases 19, 20 and 22 runs in three
+     processes of its own (``--cpu-twin``) while the card runs 19-24.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -117,6 +142,14 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# The H100's rates and the count kernels' roofline, kept with the
+# autotuner's cost model: one source for its predictions and the bounds
+# below.
+from repro_torch.kernels.autotune import (  # noqa: E402
+    HBM_BYTES_PER_S, LOGIC_PER_CLOCK_PER_SM, PEAK_FLOPS,
+    POPC_PER_CLOCK_PER_SM, SFU_PER_CLOCK_PER_SM, popcount_issue_s, roofline)
+
 KERNELS = ("count_stats", "stacked_count_stats", "popcount_reduce",
            "masked_row_reduce", "flash_attention", "ssd_scan")
 CSRC = "src/repro_torch/kernels/csrc/{}.cu"
@@ -127,18 +160,12 @@ REPLACES = {"count_stats": "src/repro/kernels/bitset_ops.py:258",
             "flash_attention": "src/repro/kernels/flash_attention.py:79",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:76"}
 
-#: H100 SXM: 132 SMs, HBM at 3.35 TB/s, 989 TFLOP/s dense bf16 on the
-#: tensor cores, 67 TFLOP/s float32 outside them (NVIDIA data sheet).
-#: __popc issues 16 results per clock per SM and 32-bit AND/OR 64 on
-#: compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
-#: instruction throughput table).
-HBM_BYTES_PER_S = 3.35e12
-POPC_PER_CLOCK_PER_SM = 16
-#: The SFU (exp2, reciprocal, tanh) issues 16 results per clock per SM on
-#: compute capability 9.0 (the same table).
-SFU_PER_CLOCK_PER_SM = 16
-LOGIC_PER_CLOCK_PER_SM = 64
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: The rates above (``repro_torch.kernels.autotune``): H100 SXM HBM at
+#: 3.35 TB/s, 989 TFLOP/s dense bf16 on the tensor cores and 67 TFLOP/s
+#: float32 outside them (NVIDIA data sheet); ``__popc`` and the SFU issue
+#: 16 results per clock per SM and 32-bit AND/OR 64 on compute capability
+#: 9.0 (CUDA C++ Programming Guide).  The SM count and clock are read from
+#: the card.
 
 #: Where the port runs, and the sizes of each phase.
 DEV = "cuda"
@@ -190,6 +217,41 @@ TRACES = ROOT / "chiprun_out" / "traces"
 #: Phase 18: subset sum at 1024 lanes (n >= 30; on an H100 it drains in
 #: about 4 s, and so does its twin on the host's CPU).
 SUBSET_SUM = "ss:36:0"
+#: Phases 19-22: the mesh.  ``MESH_SHARDS`` shards on one card (a mesh may
+#: repeat a device), ``MESH_LANES`` lanes each: phase 3's drain at its
+#: width, checkpointed after round ``CHECKPOINT_ROUND`` and resumed on
+#: each layout of ``ELASTIC_ON`` (shards, lanes per shard); its first
+#: ``MESH_CHECK_ROUNDS`` rounds held against the CPU.  cell60 at
+#: ``MESH_CELL60_LANES`` a shard for ``MESH_CELL60_ROUNDS`` rounds (one a
+#: bootstrap round).  Phase 7's mix on ``MESH_SERVICE`` (shards, lanes),
+#: resized to ``RESIZE_TO`` at round ``RESIZE_AT`` and saved at round
+#: ``SAVE_AT``, then restored on ``MESH_SERVICE``.
+DEV_MESH = "cuda:0"
+MESH_SHARDS = 4
+MESH_DRAIN = DRAIN[0]
+MESH_LANES = 256
+MESH_CHECK_ROUNDS = 5
+CHECKPOINT_ROUND = 10
+ELASTIC_ON = ((2, 512), (1, 1024))
+MESH_CELL60_LANES = 1024
+MESH_CELL60_ROUNDS = 3
+MESH_SERVICE = (2, 512)
+RESIZE_AT, RESIZE_TO, SAVE_AT = 12, (4, 256), 24
+#: Phase 24: both routes of the count kernels at each (n, lanes), n from 1
+#: to 32 words a row (cell60's root shape and the service's among them),
+#: ``stacked_count_stats`` on ``ROUTE_K`` tables.
+ROUTE_SHAPES = ((31, 7), (100, 1024), (300, 4096), (1024, 1024))
+ROUTE_K = 4
+#: The CPU's side of phases 19, 20 and 22 runs beside the card's phases
+#: 19-24, each part in a process of its own (``--cpu-twin``) on
+#: ``TWIN_THREADS`` threads: the drain's first rounds, cell60's (a round
+#: there takes tens of seconds, so no round starts after
+#: ``TWIN_CELL60_BUDGET_S``) and the service's schedule.  They are stopped
+#: ``TWIN_WAIT_S`` after their start.
+TWIN_PARTS = ("drain", "cell60", "service")
+TWIN_THREADS = 2
+TWIN_CELL60_BUDGET_S = 30
+TWIN_WAIT_S = 600
 #: The kernel library's phases.  The bitset pair at cell60's shape and a
 #: sweep; attention at the full width of two of the repo's model
 #: configurations (src/repro/configs: qwen2_7b, gemma2_27b) and a sweep
@@ -608,41 +670,26 @@ def measure(name, kernel, plain, iters, plain_iters, bound_ms,
                 bound_by=bound_by)
 
 
-def bound(popcounts, bytes_moved, clock_hz, sms):
-    """The least time for the work: popcount issue or HBM traffic."""
-    return rate_bound(popcounts, POPC_PER_CLOCK_PER_SM * sms * clock_hz,
-                      bytes_moved)
-
-
-def timed(name, kernel, plain, popcounts, bytes_moved, clock_hz, sms,
-          iters=200, **shape):
-    """Kernel time (profiler device time and CUDA events), plain time and
-    the bound for one input of the kernel of ``csrc/<name>.cu``."""
-    return measure(name, kernel, plain, iters, 20,
-                   *bound(popcounts, bytes_moved, clock_hz, sms),
-                   popcounts=popcounts, bytes=bytes_moved, **shape)
-
-
 def kernel_times(table, mask, valid, clock_hz, sms):
-    """``count_stats`` timed on one input.  Its binary products run on
-    the tensor cores, so the bound it is held to is the bytes of reading
-    each input once and writing the output once; beside it stands the
-    popcount-issue bound of the same work on the CUDA cores (the popcounts
-    of every valid vertex), which bounded its first, CUDA-core design."""
+    """``count_stats`` timed on one input, against ``autotune.roofline``:
+    its binary products run on the tensor cores, so the bound is the bytes
+    of reading each input once and writing the output once.  Beside it
+    stands the popcount-issue bound of the same work on the CUDA cores
+    (the popcounts of every valid vertex), which bounded its first,
+    CUDA-core design."""
     from repro_torch.kernels import bitset_ops, ref
     from repro_torch.kernels.ref import bit_set
     n, w = table.shape
     lanes = mask.shape[0]
     n_valid = int(bit_set(valid, n).sum())
-    popcounts = n_valid * w
-    nbytes = 4 * (n * w + 2 * lanes * w + 4 * lanes)
-    popc_ms, _ = bound(popcounts, 0, clock_hz, sms)
+    rl = roofline(n, w, lanes, sms=sms, clock_hz=clock_hz)
     return measure("count_stats",
                    lambda: bitset_ops.count_stats(table, mask, valid),
                    lambda: ref.count_stats_ref(table, mask, valid), 200, 20,
-                   *rate_bound(0, 1.0, nbytes), popcounts=popcounts,
-                   bytes=nbytes, popc_bound_ms=popc_ms, n=n, w=w, L=lanes,
-                   valid_pairs=n_valid)
+                   rl.seconds * 1e3, rl.bound_by, popcounts=n_valid * w,
+                   bytes=rl.nbytes, popc_bound_ms=popcount_issue_s(
+                       n_valid * w, sms, clock_hz) * 1e3,
+                   n=n, w=w, L=lanes, valid_pairs=n_valid)
 
 
 def live_alive(lanes):
@@ -1044,25 +1091,26 @@ def phase_checkpoints(report, svc):
 # -- phase 10 ---------------------------------------------------------------
 
 def stacked_times(tables, inst, mask, valid, clock_hz, sms):
-    """``stacked_count_stats`` timed on one input; its bound counts the
-    popcounts of the valid vertices of every unparked lane (its popcounts
-    run on the CUDA cores), or the bytes of reading each input once and
-    writing the output once."""
+    """``stacked_count_stats`` timed on one input, against
+    ``autotune.roofline``: the popcounts of the valid vertices of every
+    unparked lane (its popcounts run on the CUDA cores), or the bytes of
+    reading each input once and writing the output once."""
     from repro_torch.kernels import bitset_ops, ref
     from repro_torch.kernels.ref import bit_set
     k, n, w = tables.shape
     lanes = mask.shape[0]
     n_valid = int(bit_set(valid, n)[inst >= 0].sum())
-    nbytes = 4 * (k * n * w + lanes + 2 * lanes * w + 4 * lanes)
-    return timed("stacked_count_stats",
-                 lambda: bitset_ops.stacked_count_stats(tables, inst, mask,
-                                                        valid),
-                 lambda: ref.stacked_count_stats_ref(tables, inst, mask,
-                                                     valid),
-                 n_valid * w, nbytes, clock_hz, sms,
-                 popc_bound_ms=bound(n_valid * w, 0, clock_hz, sms)[0],
-                 bytes_bound_ms=rate_bound(0, 1.0, nbytes)[0], K=k, n=n,
-                 w=w, L=lanes, valid_pairs=n_valid)
+    rl = roofline(n, w, lanes, k, valid_pairs=n_valid, sms=sms,
+                  clock_hz=clock_hz)
+    return measure("stacked_count_stats",
+                   lambda: bitset_ops.stacked_count_stats(tables, inst, mask,
+                                                          valid),
+                   lambda: ref.stacked_count_stats_ref(tables, inst, mask,
+                                                       valid), 200, 20,
+                   rl.seconds * 1e3, rl.bound_by, popcounts=rl.popcounts,
+                   bytes=rl.nbytes, popc_bound_ms=rl.popcount_s * 1e3,
+                   bytes_bound_ms=rl.bytes_s * 1e3, K=k, n=n, w=w, L=lanes,
+                   valid_pairs=n_valid)
 
 
 def phase_stacked_timing(report, live):
@@ -1894,6 +1942,490 @@ def phase_subset_sum(report):
                                 serial_nodes=serial_nodes)
 
 
+# -- phases 19 to 24: the mesh, the sharded service, the autotuner ---------
+
+def lanes_digest(lanes):
+    """SHA-256 of every array of the gathered lanes (dtype, shape and
+    bytes): two runs with equal digests have bitwise equal lanes."""
+    import hashlib
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.core.distributed import _gather_lanes
+    h = hashlib.sha256()
+    for leaf in tree_leaves(_gather_lanes(lanes)):
+        arr = leaf.detach().cpu().contiguous().numpy()
+        h.update(f"{arr.dtype}{arr.shape}".encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def shard_mesh(device, shards):
+    from repro_torch.core.distributed import Mesh
+    return Mesh([device] * shards)
+
+
+def mesh_rounds(family, instance, mesh, lanes, boot_rounds, rounds):
+    """The first ``rounds`` rounds of a ``Solver.solve`` on ``mesh``
+    (``lanes`` per shard, ``boot_rounds`` bootstrap rounds of 8 steps,
+    then rounds of 64, ``max_ship`` 16), driven as ``Solver.solve`` drives
+    them; yields (problems, lanes) after each round."""
+    from repro_torch import registry
+    from repro_torch.core.distributed import _shard_lanes, make_round
+    from repro_torch.core.engine import init_lanes
+    handle = registry.problem(family, instance)
+    problems = {dev: handle.build(device=str(dev))
+                for dev in mesh.distinct()}
+    boot = make_round(problems, 8, mesh=mesh)
+    main = make_round(problems, 64, mesh=mesh)
+    cur = _shard_lanes(init_lanes(problems[mesh.devices[0]],
+                                  lanes * mesh.size), mesh)
+    for r in range(rounds):
+        cur, _ = (boot if r < boot_rounds else main)(cur)
+        yield problems, cur
+
+
+def mesh_service_schedule(device, workdir, trace_dir=None):
+    """Phase 7's mix on ``MESH_SERVICE`` shards of ``device``: resized to
+    ``RESIZE_TO`` at round ``RESIZE_AT``, saved at round ``SAVE_AT`` and
+    restored onto the first layout, then drained.  Returns what the card's
+    and the CPU's runs must share, and the service and its launches."""
+    from repro_torch.kernels import bitset_ops
+    from repro_torch.service import SolverService
+    from repro_torch.solver import Solver, SolverConfig
+    dev_type = torch.device(device).type
+    shards, lanes = MESH_SERVICE
+    traced = {} if trace_dir is None else dict(
+        trace_path=str(trace_dir / "mesh_service.jsonl"), metrics=True)
+    svc = Solver(SolverConfig(lanes=lanes, steps_per_round=SERVICE["steps"],
+                              device=dev_type,
+                              mesh=shard_mesh(device, shards), **traced)
+                 ).serve(max_n=SERVICE["max_n"], slots=SERVICE["slots"])
+    events = []
+    svc.on_event = events.append
+    submit_all(svc, [(f, s, {}) for f, s, _ in SERVICE_MIX])
+    bitset_ops.reset_launches()
+    t0 = time.perf_counter()
+    while svc._has_work() and svc.rounds < RESIZE_AT:
+        svc.step_round()
+    svc.resize(mesh=shard_mesh(device, RESIZE_TO[0]), num_lanes=RESIZE_TO[1])
+    while svc._has_work() and svc.rounds < SAVE_AT:
+        svc.step_round()
+    check(svc._has_work(), "mesh service drained before its save")
+    svc.finalize_trace()
+    path = workdir / f"mesh_service_{dev_type}.ckpt"
+    svc.save(str(path))
+    back = SolverService.restore(
+        str(path), num_lanes=lanes, steps_per_round=SERVICE["steps"],
+        device=dev_type, mesh=shard_mesh(device, shards),
+        **({} if trace_dir is None else dict(
+            trace_path=str(trace_dir / "mesh_service_restored.jsonl"),
+            metrics=True)))
+    path.unlink()
+    back.on_event = events.append
+    results = back.drain()
+    if dev_type == "cuda":
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(bitset_ops.LAUNCHES)
+    shared = dict(
+        results={str(rid): [r.optimum, r.status, r.admitted_round,
+                            r.retired_round]
+                 for rid, r in sorted(results.items())},
+        tickets={str(rid): t.status.value
+                 for rid, t in sorted(back.tickets.items())},
+        rounds=back.rounds,
+        resizes=[e.reason for e in events if e.kind == "resize"])
+    return shared, back, launches, wall_ms
+
+
+def twin_part(part, path):
+    """One part of the CPU's side of phases 19, 20 and 22, run in a
+    process of its own beside the card's phases (``--cpu-twin PART
+    PATH``); writes its results to ``path`` (JSON) after each round it
+    holds.  ``cell60`` starts no round after ``TWIN_CELL60_BUDGET_S``."""
+    import tempfile
+    torch.set_num_threads(TWIN_THREADS)
+    t0 = time.perf_counter()
+    out = {}
+
+    def save():
+        out["seconds"] = time.perf_counter() - t0
+        tmp = pathlib.Path(str(path) + ".tmp")
+        tmp.write_text(json.dumps(out))
+        tmp.replace(path)
+
+    mesh = shard_mesh("cpu", MESH_SHARDS)
+    if part == "cell60":
+        out["digests"] = []
+        for _, lanes in mesh_rounds("vc", "cell60", mesh, MESH_CELL60_LANES,
+                                    1, MESH_CELL60_ROUNDS):
+            out["digests"].append(lanes_digest(lanes))
+            save()
+            if time.perf_counter() - t0 > TWIN_CELL60_BUDGET_S:
+                break
+    elif part == "drain":
+        family, instance, _ = MESH_DRAIN
+        out["digests"] = [lanes_digest(lanes) for _, lanes in mesh_rounds(
+            family, instance, mesh, MESH_LANES, 4, MESH_CHECK_ROUNDS)]
+    elif part == "service":
+        with tempfile.TemporaryDirectory() as tmp:
+            out["service"] = mesh_service_schedule("cpu",
+                                                   pathlib.Path(tmp))[0]
+    else:
+        raise ValueError(f"no CPU twin part {part!r}")
+    out["done"] = True
+    save()
+
+
+def start_twin():
+    """Start every part of the CPU twin, each in its own process."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    procs = {}
+    for part in TWIN_PARTS:
+        path = out / f"cpu_twin_{part}.json"
+        if path.exists():
+            path.unlink()
+        log = open(out / f"cpu_twin_{part}.log", "w")
+        procs[part] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--cpu-twin", part,
+             str(path)], stdout=log, stderr=subprocess.STDOUT), path, log)
+    return procs, time.perf_counter()
+
+
+def finish_twin(twin):
+    """Wait for the CPU twin's parts (at most ``TWIN_WAIT_S`` from their
+    start), stop any still running, and return each part's results."""
+    procs, t0 = twin
+    res = {}
+    for part, (proc, path, log) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, TWIN_WAIT_S
+                                  - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        res[part] = json.loads(path.read_text()) if path.exists() else {}
+        res[part]["rc"] = proc.returncode
+    return res
+
+
+def phase_mesh_drain(report):
+    """``MESH_DRAIN`` on ``MESH_SHARDS`` shards of the card, drained
+    through ``Solver.solve``, with the launch counts set to 0 just before;
+    the lanes after round ``CHECKPOINT_ROUND`` saved for phase 21; beside
+    it phase 3's unsharded drain of the same instance at the same width.
+    Then the first ``MESH_CHECK_ROUNDS`` rounds driven by hand (digests
+    for the CPU twin: the bootstrap rounds emit no event), the last of
+    them held against the solve's, and the next round timed in its parts;
+    and a one-shard mesh against the unsharded solve."""
+    from repro_torch import registry
+    from repro_torch.core import checkpoint as ckpt
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import steal
+    from repro_torch.core.engine import make_expand
+    from repro_torch.kernels import bitset_ops
+    from repro_torch.solver import Solver, SolverConfig
+    family, instance, want = MESH_DRAIN
+    mesh = shard_mesh(DEV_MESH, MESH_SHARDS)
+    ckpt_path = ROOT / "chiprun_out" / "chip_smoke_mesh.ckpt"
+    at_check = []
+
+    def at_round(ev):
+        if ev.kind != "round":
+            return
+        if ev.round == MESH_CHECK_ROUNDS:
+            at_check.append(lanes_digest(ev.lanes))
+        if ev.round == CHECKPOINT_ROUND:
+            ckpt.save(str(ckpt_path), dist._gather_lanes(ev.lanes))
+
+    solver = Solver(SolverConfig(lanes=MESH_LANES, steps_per_round=64,
+                                 bootstrap_rounds=4, bootstrap_steps=8,
+                                 device=DEV, mesh=mesh), on_event=at_round)
+    handle = registry.problem(family, instance)
+    bitset_ops.reset_launches()
+    ms, res = sync_ms(lambda: solver.solve(handle))
+    launches = bitset_ops.LAUNCHES["count_stats"]
+    s = res.stats
+    plain = next(d for d in report["solves"]
+                 if (d["problem"], d["instance"], d["lanes"])
+                 == (family, instance, MESH_SHARDS * MESH_LANES))
+    print(f"phase 19: {family} {instance} on {MESH_SHARDS} shards of "
+          f"{DEV_MESH} x {MESH_LANES} lanes: optimum={s.best} "
+          f"rounds={s.rounds} nodes={s.nodes} T_S={s.t_s} T_R={s.t_r} "
+          f"T_C={s.t_c} wall={ms:.1f} ms count_stats launches={launches}; "
+          f"unsharded at {MESH_SHARDS * MESH_LANES} lanes (phase 3): "
+          f"{plain['stats']['rounds']} rounds wall={plain['wall_ms']:.1f} ms",
+          flush=True)
+    check(s.best == want, f"mesh drain: optimum {s.best} != {want}")
+    check(s.t_c > 0, "mesh drain: no task crossed a shard")
+    check(s.lanes == MESH_SHARDS * MESH_LANES, f"mesh drain: {s.lanes} lanes")
+    check(launches > 0, "mesh drain: count_stats never launched")
+    report["launches"]["count_stats"] += launches
+    report["mesh_drain"] = dict(stats=s._asdict(), wall_ms=ms,
+                                launches=launches,
+                                unsharded_wall_ms=plain["wall_ms"],
+                                unsharded_rounds=plain["stats"]["rounds"])
+
+    # The first rounds by hand, for the CPU twin, and the next one's parts.
+    digests = []
+    for problems, lanes in mesh_rounds(family, instance, mesh, MESH_LANES,
+                                       4, MESH_CHECK_ROUNDS):
+        digests.append(lanes_digest(lanes))
+    check(digests[-1:] == at_check,
+          f"mesh drain: round {MESH_CHECK_ROUNDS} by hand differs from the "
+          f"solve's")
+    report["mesh_drain"]["digests"] = digests
+    plist = [problems[d] for d in mesh.devices]
+    expand = make_expand(plist[0], 64)
+    round_ms, _ = sync_ms(lambda: dist.make_distributed_round(
+        problems, mesh, 64)(lanes))
+    expand_ms, expanded = sync_ms(lambda: [expand(x) for x in lanes.shards])
+    intra_ms, intra = sync_ms(lambda: [
+        steal.assign_tasks(*steal.balance_plan(x)) for x in expanded])
+    shards = [x for x, _ in intra]
+    cross = sorted(sync_ms(lambda: dist.cross_device_assign(shards, 16))[0]
+                   for _ in range(3))
+    assigned, got = dist.cross_device_assign(shards, 16)
+    replay_ms, _ = sync_ms(lambda: dist.replay_per_device(
+        plist, mesh, assigned, [a | b for (_, a), b in zip(intra, got)]))
+    print(f"phase 19: round {MESH_CHECK_ROUNDS + 1} "
+          f"({int(lanes.active.sum())} lanes active at its start): "
+          f"{round_ms:.1f} ms; its parts: expand of the {MESH_SHARDS} shards "
+          f"{expand_ms:.1f} ms, intra-shard steals {intra_ms:.1f} ms, "
+          f"cross-device steal {cross[1]:.1f} ms (median of "
+          f"{', '.join(f'{c:.1f}' for c in cross)}), one replay of the "
+          f"receivers {replay_ms:.1f} ms", flush=True)
+    report["mesh_drain"]["round_parts"] = dict(
+        round_ms=round_ms, expand_ms=expand_ms, intra_ms=intra_ms,
+        cross_ms=cross, replay_ms=replay_ms)
+
+    # A mesh of one shard is the unsharded solve.
+    tw_family, tw_instance, tw_lanes = TWIN
+    base = dict(lanes=tw_lanes, steps_per_round=64, bootstrap_rounds=4,
+                bootstrap_steps=8, device=DEV)
+    handle = registry.problem(tw_family, tw_instance)
+    one = Solver(SolverConfig(mesh=shard_mesh(DEV_MESH, 1), **base)).solve(
+        handle)
+    plain = Solver(SolverConfig(**base)).solve(handle)
+    check(one.stats == plain.stats, f"one-shard mesh {tuple(one.stats)} != "
+                                    f"unsharded {tuple(plain.stats)}")
+    check_same_lanes(one.lanes.gather(), plain.lanes, "one-shard mesh")
+    print(f"phase 19: {tw_family} {tw_instance} lanes={tw_lanes}: a mesh of "
+          f"one shard gives the unsharded SolveStats {tuple(plain.stats)} "
+          f"and lanes", flush=True)
+    return ckpt_path
+
+
+def phase_mesh_cell60(report):
+    """``vc cell60`` on ``MESH_SHARDS`` shards x ``MESH_CELL60_LANES``
+    lanes: the bootstrap round and 2 more, driven as ``Solver.solve``
+    drives them (digests for the CPU twin), with the launch counts set to
+    0 just before."""
+    from repro_torch.kernels import bitset_ops
+    mesh = shard_mesh(DEV_MESH, MESH_SHARDS)
+    bitset_ops.reset_launches()
+    digests = []
+    ms, _ = sync_ms(lambda: digests.extend(
+        lanes_digest(lanes) for _, lanes in mesh_rounds(
+            "vc", "cell60", mesh, MESH_CELL60_LANES, 1, MESH_CELL60_ROUNDS)))
+    launches = bitset_ops.LAUNCHES["count_stats"]
+    check(len(digests) == MESH_CELL60_ROUNDS and launches > 0,
+          f"mesh cell60: {len(digests)} rounds, {launches} launches")
+    print(f"phase 20: vc cell60 on {MESH_SHARDS} shards x "
+          f"{MESH_CELL60_LANES} lanes, {len(digests)} rounds: wall={ms:.1f} "
+          f"ms (each round's lanes hashed) count_stats launches={launches}",
+          flush=True)
+    report["launches"]["count_stats"] += launches
+    report["mesh_cell60"] = dict(wall_ms=ms, launches=launches,
+                                 digests=digests)
+
+
+def phase_mesh_elastic(report, ckpt_path):
+    """Phase 19's solve as saved after round ``CHECKPOINT_ROUND``,
+    resumed on each layout of ``ELASTIC_ON`` and drained."""
+    from repro_torch import registry
+    from repro_torch.kernels import bitset_ops
+    from repro_torch.solver import Solver, SolverConfig
+    family, instance, want = MESH_DRAIN
+    out = {}
+    for shards, lanes in ELASTIC_ON:
+        mesh = shard_mesh(DEV_MESH, shards) if shards > 1 else None
+        bitset_ops.reset_launches()
+        ms, res = sync_ms(lambda: Solver(SolverConfig(
+            lanes=lanes, steps_per_round=64, device=DEV, mesh=mesh,
+            resume_from=str(ckpt_path))).solve(registry.problem(
+                family, instance)))
+        launches = bitset_ops.LAUNCHES["count_stats"]
+        s = res.stats
+        print(f"phase 21: saved after round {CHECKPOINT_ROUND} on "
+              f"{MESH_SHARDS} shards, resumed on {shards} x {lanes} lanes: "
+              f"optimum={s.best} rounds={s.rounds} nodes={s.nodes} "
+              f"T_C={s.t_c} wall={ms:.1f} ms count_stats launches="
+              f"{launches}", flush=True)
+        check(s.best == want, f"elastic {shards} x {lanes}: optimum "
+                              f"{s.best} != {want}")
+        check(launches > 0, "elastic: count_stats never launched")
+        report["launches"]["count_stats"] += launches
+        out[f"{shards}x{lanes}"] = dict(stats=s._asdict(), wall_ms=ms)
+    report["mesh_elastic"] = out
+    ckpt_path.unlink()
+
+
+def phase_mesh_service(report):
+    """Phase 7's mix on the sharded service: resized, saved and restored
+    mid-drain; every result its serial optimum; the trace validates and
+    holds the resize."""
+    from repro_torch.obs.trace import read_trace
+    shared, svc, launches, ms = mesh_service_schedule(
+        DEV_MESH, ROOT / "chiprun_out", trace_dir=TRACES)
+    check_optima(svc.results, "mesh service")
+    check(launches["stacked_count_stats"] > 0,
+          "mesh service: stacked_count_stats never launched")
+    records = read_trace(str(TRACES / "mesh_service.jsonl"))
+    resizes = [r for r in records if r["t"] == "resize"]
+    check([(r["devices"], r["lanes"]) for r in resizes] == [
+        (RESIZE_TO[0], RESIZE_TO[0] * RESIZE_TO[1])],
+        f"mesh service trace: resize records {resizes}")
+    read_trace(str(TRACES / "mesh_service_restored.jsonl"))
+    print(f"phase 22: service on {MESH_SERVICE[0]} shards x "
+          f"{MESH_SERVICE[1]} lanes, resized at round {RESIZE_AT} "
+          f"({shared['resizes']}), saved at round {SAVE_AT} and restored on "
+          f"{MESH_SERVICE[0]} x {MESH_SERVICE[1]}: {len(SERVICE_MIX)} "
+          f"requests drained to their serial optima in {shared['rounds']} "
+          f"rounds, wall={ms:.1f} ms, stacked_count_stats launches="
+          f"{launches['stacked_count_stats']}; traces validate",
+          flush=True)
+    report["launches"]["stacked_count_stats"] += launches[
+        "stacked_count_stats"]
+    report["mesh_service"] = dict(shared, wall_ms=ms, launches=launches)
+    return shared
+
+
+def phase_two_cards(report):
+    from repro_torch import registry
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.solver import Solver, SolverConfig
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"phase 23: no second card present ({count} card): the mesh "
+              f"over cards is not run", flush=True)
+        report["two_cards"] = None
+        return
+    family, instance, want = MESH_DRAIN
+    mesh = Mesh(["cuda:0", "cuda:1"])
+    ms, res = sync_ms(lambda: Solver(SolverConfig(
+        lanes=512, steps_per_round=64, bootstrap_rounds=4, bootstrap_steps=8,
+        device=DEV, mesh=mesh)).solve(registry.problem(family, instance)))
+    check(res.stats.best == want, f"two cards: optimum {res.stats.best}")
+    print(f"phase 23: {family} {instance} on cuda:0 and cuda:1 x 512 lanes: "
+          f"{tuple(res.stats)} wall={ms:.1f} ms", flush=True)
+    report["two_cards"] = dict(stats=res.stats._asdict(), wall_ms=ms)
+
+
+def phase_autotune(report, card):
+    """``choose`` and ``predict_cost`` at phase 4's shape.  Both routes of
+    each count kernel held bitwise against the plain version at every row
+    width the narrow route takes up to 32 words, the shapes
+    ``measured_choice`` then times among them: cell60's root shape for
+    ``count_stats``, the service's (K=4, n=100, L=1024) for
+    ``stacked_count_stats``."""
+    from repro_torch.kernels import autotune, bitset_ops, ref
+    n, w, lanes = 300, 10, CELL60_LANES
+    choice = autotune.choose(n, w, lanes)
+    costs = {r: autotune.predict_cost(n, w, lanes, 1, r)
+             for r in autotune.routes(w)}
+    rl = autotune.roofline(n, w, lanes)
+    print(f"phase 24: autotune.choose({n}, {w}, {lanes}) = {choice.route}; "
+          f"predict_cost " + ", ".join(f"{r} {c * 1e6:.3f} us"
+                                       for r, c in costs.items())
+          + f" (roofline {rl.seconds * 1e6:.3f} us by {rl.bound_by} + "
+          f"launch {autotune.LAUNCH_OVERHEAD_S * 1e6:.2f} us)", flush=True)
+    check(choice.route == "narrow", f"choose picked {choice.route}")
+
+    rng = np.random.RandomState(24)
+    cases = 0
+    for rn, rlanes in ROUTE_SHAPES:
+        for case in (random_case, tied_case):
+            table, mask, valid = case(rng, rn, rlanes)
+            want = ref.count_stats_ref(table, mask, valid)
+            for route in autotune.ROUTES:
+                compare(bitset_ops.count_stats(table, mask, valid,
+                                               route=route), want,
+                        f"count_stats route={route} n={rn} L={rlanes}",
+                        report["parity"]["count_stats"])
+                cases += 1
+        for kind in STACKED_KINDS:
+            tables, inst, mask, valid = stacked_case(rng, ROUTE_K, rn,
+                                                     rlanes, kind)
+            want = ref.stacked_count_stats_ref(tables, inst, mask, valid)
+            for route in autotune.ROUTES:
+                compare(bitset_ops.stacked_count_stats(
+                    tables, inst, mask, valid, route=route), want,
+                    f"stacked_count_stats route={route} {kind} "
+                    f"K={ROUTE_K} n={rn} L={rlanes}",
+                    report["parity"]["stacked_count_stats"])
+                cases += 1
+    print(f"phase 24: both routes of count_stats and stacked_count_stats "
+          f"(K={ROUTE_K}) bitwise equal to plain on {cases} cases at "
+          f"(n, L) in {ROUTE_SHAPES}", flush=True)
+
+    measured = {}
+    for name, shape in (("count_stats", (n, w, lanes, 1)),
+                        ("stacked_count_stats", (100, 4, 1024, ROUTE_K))):
+        got = autotune.measured_choice(*shape)
+        measured[name] = dict(shape=shape, route=got.route,
+                              ms=got.measured_ms)
+        print(f"phase 24: measured_choice{shape} ({name}) = {got.route}: "
+              + ", ".join(f"{r} {ms * 1e3:.2f} us" for r, ms in
+                          got.measured_ms.items())
+              + f" a launch (CUDA events over 200) on {card}", flush=True)
+    autotune.clear_cache()
+    report["autotune"] = dict(choose=choice.route, predict_cost_s=costs,
+                              route_cases=cases, measured=measured)
+
+
+def check_twin(report, twin):
+    """Hold phases 19, 20 and 22 against the CPU twin's parts."""
+    for part in TWIN_PARTS:
+        check(twin[part].get("done") or (part == "cell60"
+                                         and twin[part].get("digests")),
+              f"CPU twin {part} failed or ran out of time (rc "
+              f"{twin[part].get('rc')}; chiprun_out/cpu_twin_{part}.log)")
+    card = report["mesh_drain"]["digests"]
+    differ = [i + 1 for i, (a, b) in enumerate(zip(card,
+                                                   twin["drain"]["digests"]))
+              if a != b]
+    check(twin["drain"]["digests"] == card,
+          f"mesh drain: lanes differ from the CPU's in rounds {differ}")
+    print(f"phase 19: the first {len(card)} rounds' gathered lanes are "
+          f"bitwise the CPU's {MESH_SHARDS}-shard run's (SHA-256 of every "
+          f"array); the drained CPU run is not compared: its rounds take "
+          f"seconds each on the host", flush=True)
+    shared = report["mesh_service"]
+    cpu = twin["service"]["service"]
+    for key in ("results", "tickets", "rounds", "resizes"):
+        check(shared[key] == cpu[key],
+              f"mesh service: {key} differ from the CPU's: {shared[key]} "
+              f"vs {cpu[key]}")
+    print("phase 22: results, ticket states, rounds and resize events equal "
+          "the CPU's run of the same schedule", flush=True)
+    cpu60 = twin["cell60"]["digests"]
+    card60 = report["mesh_cell60"]["digests"]
+    check(cpu60 == card60[:len(cpu60)],
+          f"mesh cell60: {len(cpu60)} CPU rounds, digests differ")
+    seconds = {part: round(twin[part].get("seconds", 0), 1)
+               for part in TWIN_PARTS}
+    print(f"phase 20: the first {len(cpu60)} of {len(card60)} rounds' "
+          f"gathered lanes are bitwise the CPU's; the CPU twin's parts ran "
+          f"{seconds} s beside the card's phases", flush=True)
+    report["cpu_twin"] = dict(seconds=seconds, cell60_rounds=len(cpu60),
+                              rc={p: twin[p].get("rc") for p in TWIN_PARTS})
+
+
 # -- driver -----------------------------------------------------------------
 
 def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
@@ -2037,7 +2569,12 @@ def main(argv=None) -> int:
     ap.add_argument("--telemetry-repeats", type=int, default=1, metavar="N",
                     help="pairs of traced and bare drains in phases 15 and "
                          "17, in turns (default 1)")
+    ap.add_argument("--cpu-twin", nargs=2, metavar=("PART", "PATH"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.cpu_twin:
+        twin_part(*args.cpu_twin)
+        return 0
     if args.telemetry_repeats < 1:
         ap.error("--telemetry-repeats must be >= 1")
     if not torch.cuda.is_available():
@@ -2103,6 +2640,17 @@ def main(argv=None) -> int:
     run(17, phase_telemetry_service, report, bare_svc, bare_ms,
         args.telemetry_repeats)
     run(18, phase_subset_sum, report)
+    twin = start_twin()
+    try:
+        ckpt_path = run(19, phase_mesh_drain, report)
+        run(20, phase_mesh_cell60, report)
+        run(21, phase_mesh_elastic, report, ckpt_path)
+        run(22, phase_mesh_service, report)
+        run(23, phase_two_cards, report)
+        run(24, phase_autotune, report, card)
+    finally:
+        twin_result = run("twin", finish_twin, twin)
+    check_twin(report, twin_result)
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small, *wide]),
         kernel_entry("stacked_count_stats", report, service,

@@ -100,4 +100,4 @@ def load_service_state(svc, lanes: Any, tables: Any) -> None:
         fullm=np.array(tables.fullm, np.uint32),
         family=np.array(tables.family, np.int32))
     svc._write_tables()
-    svc.lanes = lanes_from_numpy(lanes, svc.problem, svc.device)
+    svc._set_lanes(lanes_from_numpy(lanes, svc.problem, svc._home))

@@ -1,5 +1,5 @@
-"""Heaviest-task work stealing between lanes on one device (counterpart of
-the single-device part of ``repro.core.steal``; paper §IV-A/B).
+"""Heaviest-task work stealing between lanes (counterpart of
+``repro.core.steal``; paper §IV-A/B).
 
 Every steal round, idle lanes (*thieves*) are matched with active lanes
 that have an open right branch (*donors*), heaviest task first (the
@@ -8,6 +8,11 @@ GETHEAVIESTTASKINDEX (mark DELEGATED, ship the prefix) and installation
 is FIXINDEX + CONVERTINDEX (replay).  Matching is scoped by instance: a
 thief only takes work of its own instance, and unbound lanes neither
 steal nor donate.
+
+``extract_tasks`` and ``claim_tasks`` are the two lane-local halves of the
+cross-device steal (``repro_torch.core.distributed.cross_device_steal``):
+a shard extracts its per-instance quota of heaviest tasks, and its idle
+lanes claim the shipped rows by global rank.
 """
 
 from __future__ import annotations
@@ -66,37 +71,131 @@ def match_thieves_to_donors(lanes: Lanes, slots: torch.Tensor
     same = lanes.inst[:, None] == lanes.inst[None, :]
     pair = (thieves[:, None] & donors[None, :] & same
             & (trank[:, None] == drank[None, :]))
-    # The first True of each row, explicitly: the smallest matching lane.
-    first = torch.where(pair, lane_ids[None, :], w).amin(dim=1)
-    src = torch.where(first == w, 0, first)
-    return src, pair.any(dim=1), pair.any(dim=0)
+    return _first_true(pair), pair.any(dim=1), pair.any(dim=0)
 
 
-def install_tasks(problem: BinaryProblem, lanes: Lanes, bits: torch.Tensor,
-                  tdepth: torch.Tensor, tinst: torch.Tensor,
-                  valid: torch.Tensor) -> Lanes:
-    """Install per-lane task rows (row i goes to lane i; ``valid`` gates
-    installation and only idle lanes take a row).  Receiving lanes replay
-    the index from their instance's root (CONVERTINDEX) and own the
-    stolen subtree from ``base = task depth``."""
+def _first_true(pair: torch.Tensor) -> torch.Tensor:
+    """Column of the first True in each row of ``pair`` (0 where none), as
+    the reference's ``argmax`` over a boolean row gives it."""
+    cols = pair.shape[1]
+    ids = torch.arange(cols, dtype=torch.int32, device=pair.device)
+    first = torch.where(pair, ids[None, :], cols).amin(dim=1)
+    return torch.where(first == cols, 0, first)
+
+
+def extract_tasks(lanes: Lanes, quota: torch.Tensor, max_tasks: int
+                  ) -> Tuple[Lanes, torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor, torch.Tensor]:
+    """Extract the ``quota[i]`` heaviest tasks of each instance i.
+
+    ``quota`` is int32[K].  Returns ``(lanes', bits[S, IDX_LEN],
+    task_depth[S], task_inst[S], task_rank[S], valid[S])`` with S =
+    min(W, max_tasks): the tasks come from distinct lanes in (instance,
+    weight) order, and ``task_rank`` is a task's rank within its instance
+    on this shard (the cross-device claim key).  Donor lanes get their
+    slot marked DELEGATED and ``donated`` incremented.  The rows are
+    ordered by a stable sort, as the reference's ``argsort``: another tie
+    order would ship, and grow, a different tree.
+    """
+    w, il = lanes.idx.shape
+    k = quota.shape[0]
+    lane_ids = torch.arange(w, dtype=torch.int32, device=lanes.idx.device)
+    slots = donor_slots(lanes)
+    can = donor_mask(lanes, slots)
+    dkey = slots * w + lane_ids
+    drank = _rank_within_instance(can, dkey, lanes.inst)
+    safe_inst = lanes.inst.clamp(0, k - 1)
+    is_donor = can & (drank < quota[safe_inst])
+
+    new_idx_all, bits_all = extract_task(lanes.idx, slots)
+    lanes = lanes._replace(
+        idx=torch.where(is_donor[:, None], new_idx_all, lanes.idx),
+        donated=lanes.donated + is_donor.to(torch.int32))
+
+    # Ship rows in (instance, weight) order: instance-major key sort.
+    key = torch.where(is_donor, safe_inst * (il * w) + dkey, k * il * w + w)
+    sel = torch.argsort(key, stable=True)[:max_tasks]
+    valid = is_donor[sel]
+    bits = torch.where(valid[:, None], bits_all[sel], UNVISITED).to(
+        torch.int8)
+    tdepth = torch.where(valid, slots[sel] + 1, 0).to(torch.int32)
+    tinst = torch.where(valid, safe_inst[sel], 0).to(torch.int32)
+    trank = torch.where(valid, drank[sel], 0).to(torch.int32)
+    return lanes, bits, tdepth, tinst, trank, valid
+
+
+def claim_tasks(thieves: torch.Tensor, inst: torch.Tensor,
+                my_grank: torch.Tensor, w_inst: torch.Tensor,
+                w_grank: torch.Tensor, w_valid: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-instance rank-arithmetic claim (cross-device step 4).
+
+    ``thieves``/``inst``/``my_grank`` describe this shard's lanes (bool[W],
+    int32[W], int32[W]); ``w_inst``/``w_grank``/``w_valid`` the gathered
+    world task rows ([D*S]).  Returns ``(src, claim)``: the row each lane
+    claims (0 where it claims none) and the claim mask.  When ``(inst,
+    grank)`` is unique among valid rows and among thieves, which the quota
+    construction guarantees, the claims are a bijection between matching
+    rows and thieves, and a thief only claims a row of its own instance.
+    """
+    pair = (thieves[:, None] & w_valid[None, :]
+            & (w_inst[None, :] == inst[:, None])
+            & (w_grank[None, :] == my_grank[:, None]))       # [W, D*S]
+    return _first_true(pair), pair.any(dim=1)
+
+
+def assign_tasks(lanes: Lanes, bits: torch.Tensor, tdepth: torch.Tensor,
+                 tinst: torch.Tensor, valid: torch.Tensor,
+                 cross: bool = False) -> Tuple[Lanes, torch.Tensor]:
+    """FIXINDEX for per-lane task rows (row i goes to lane i; ``valid``
+    gates installation and only idle lanes take a row): every field but
+    the state stack.  Returns the lanes and the mask of those that took a
+    row, which :func:`replay_received` then rebuilds.  ``cross`` (set by
+    the cross-device steal) also counts each receipt in ``t_c``."""
     my_valid = valid & ~lanes.active
-    new_stack = replay_path(problem, bits, tdepth, lanes.stack, tinst)
-    stack = tree_map(lambda new, old: torch.where(bcast(my_valid, old), new,
-                                                  old),
-                     new_stack, lanes.stack)
+    recv = my_valid.to(torch.int32)
     return lanes._replace(
         idx=torch.where(my_valid[:, None], bits, lanes.idx),
         depth=torch.where(my_valid, tdepth, lanes.depth),
         base=torch.where(my_valid, tdepth, lanes.base),
         inst=torch.where(my_valid, tinst, lanes.inst),
         active=lanes.active | my_valid,
-        stack=stack,
-        t_s=lanes.t_s + my_valid.to(torch.int32),
-    )
+        t_s=lanes.t_s + recv,
+        t_c=lanes.t_c + recv if cross else lanes.t_c,
+    ), my_valid
 
 
-def balance_device(problem: BinaryProblem, lanes: Lanes) -> Lanes:
-    """One intra-device steal round: same-instance thief/donor matching."""
+def replay_received(problem: BinaryProblem, lanes: Lanes,
+                    received: torch.Tensor) -> Lanes:
+    """CONVERTINDEX for the lanes in ``received``: each replays its own
+    index from its instance's root and owns the stolen subtree from
+    ``base`` = its depth; the other lanes keep their stacks.  Lane-local,
+    so lanes of several shards on one device replay in one batch."""
+    bits = torch.where(received[:, None], lanes.idx, UNVISITED).to(
+        torch.int8)
+    depth = torch.where(received, lanes.depth, 0).to(torch.int32)
+    inst = torch.where(received, lanes.inst, 0).to(torch.int32)
+    new_stack = replay_path(problem, bits, depth, lanes.stack, inst)
+    return lanes._replace(stack=tree_map(
+        lambda new, old: torch.where(bcast(received, old), new, old),
+        new_stack, lanes.stack))
+
+
+def install_tasks(problem: BinaryProblem, lanes: Lanes, bits: torch.Tensor,
+                  tdepth: torch.Tensor, tinst: torch.Tensor,
+                  valid: torch.Tensor, cross: bool = False) -> Lanes:
+    """Install per-lane task rows: :func:`assign_tasks`, then the
+    receiving lanes replay the index from their instance's root
+    (:func:`replay_received`)."""
+    lanes, received = assign_tasks(lanes, bits, tdepth, tinst, valid, cross)
+    return replay_received(problem, lanes, received)
+
+
+def balance_plan(lanes: Lanes) -> Tuple[Lanes, torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor]:
+    """The matching and extraction of one intra-device steal round:
+    ``(lanes', bits, task_depth, task_inst, matched)``, thief i's row in
+    row i, for :func:`install_tasks` (or :func:`assign_tasks`)."""
     slots = donor_slots(lanes)
     thieves = thief_mask(lanes)
     # Every bound idle lane "requests" this round (paper's T_R accounting).
@@ -112,4 +211,9 @@ def balance_device(problem: BinaryProblem, lanes: Lanes) -> Lanes:
         torch.int8)
     tdepth = torch.where(matched, slots[src] + 1, 0).to(torch.int32)
     tinst = torch.where(matched, lanes.inst[src], 0).to(torch.int32)
-    return install_tasks(problem, lanes, bits, tdepth, tinst, matched)
+    return lanes, bits, tdepth, tinst, matched
+
+
+def balance_device(problem: BinaryProblem, lanes: Lanes) -> Lanes:
+    """One intra-device steal round: same-instance thief/donor matching."""
+    return install_tasks(problem, *balance_plan(lanes))

@@ -124,9 +124,17 @@ class LaunchError(RuntimeError):
 def launch(name: str, argtypes: Sequence, args: Sequence, device) -> None:
     """Launch the kernel of ``csrc/<name>.cu`` on the current stream of
     ``device`` (a CUDA device), raise ``LaunchError`` if it returns a CUDA
-    error, and count the launch."""
+    error, and count the launch.  The launcher runs with ``device`` as the
+    current card, so shards of a mesh on other cards launch there."""
+    device = torch.device(device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _entry(name, argtypes)(*args, stream)
+    fn = _entry(name, argtypes)
+    if (device.index is not None
+            and device.index != torch.cuda.current_device()):
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
+    else:
+        err = fn(*args, stream)
     if err != 0:
         raise LaunchError(name, err)
     LAUNCHES[name] += 1

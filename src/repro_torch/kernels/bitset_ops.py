@@ -9,16 +9,19 @@ hand-written Hopper kernels ``csrc/<name>.cu`` (or raise), on a CPU
 tensor they run the plain versions in ``ref.py``.  There is no fallback
 from one to the other.  The reference's ``tile`` / ``stages`` /
 ``interpret`` knobs have no counterpart: one CUDA kernel replaces each
-Pallas layout.
+Pallas layout.  The two count kernels each have two routes, ``narrow``
+(w <= 32) and ``wide``; ``autotune.choose`` names the one a launch takes
+and the wrapper passes it to the launcher.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 #: Column layout of the ``count_stats`` output.
 BEST, ARG, SUM, MASK_COUNT = 0, 1, 2, 3
@@ -55,28 +58,44 @@ def _check(table: torch.Tensor, mask: torch.Tensor,
                              f"on {table.device}")
 
 
+def _route(name: str, route, n: int, w: int, lanes: int, k: int) -> int:
+    """The launcher's ``wide`` flag: ``route``, or ``autotune.choose``'s
+    pick when it is None."""
+    if route is None:
+        route = autotune.choose(n, w, lanes, k).route
+    if route not in autotune.routes(w):
+        raise ValueError(f"{name}: route {route!r} does not take w={w} "
+                         f"(routes: {autotune.routes(w)})")
+    return int(route == "wide")
+
+
 def count_stats(table: torch.Tensor, mask: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+                valid: torch.Tensor, *,
+                route: Optional[str] = None) -> torch.Tensor:
     """The masked-popcount pass: table int32[n, w]; mask/valid int32[L, w]
     -> int32[L, 4] = (best_count, best_vertex, count_sum, mask_count); see
-    ``ref.count_stats_ref`` for the contract."""
+    ``ref.count_stats_ref`` for the contract.  ``route`` ("narrow" or
+    "wide") overrides ``autotune.choose`` on the card."""
     _check(table, mask, valid)
+    n, w = table.shape
+    lanes = mask.shape[0]
     if table.device.type == "cpu":
+        if route is not None:
+            _route("count_stats", route, n, w, lanes, 1)
         return ref.count_stats_ref(table, mask, valid)
     if table.device.type != "cuda":
         raise ValueError(f"count_stats has no kernel for {table.device}")
-    n, w = table.shape
-    lanes = mask.shape[0]
+    wide = _route("count_stats", route, n, w, lanes, 1)
     out = torch.empty((lanes, 4), dtype=torch.int32, device=table.device)
-    _build.launch("count_stats", [_PTR] * 4 + [_INT] * 3,
+    _build.launch("count_stats", [_PTR] * 4 + [_INT] * 4,
                   [table.data_ptr(), mask.data_ptr(), valid.data_ptr(),
-                   out.data_ptr(), n, w, lanes], table.device)
+                   out.data_ptr(), n, w, lanes, wide], table.device)
     return out
 
 
 def stacked_count_stats(tables: torch.Tensor, inst: torch.Tensor,
-                        mask: torch.Tensor,
-                        valid: torch.Tensor) -> torch.Tensor:
+                        mask: torch.Tensor, valid: torch.Tensor, *,
+                        route: Optional[str] = None) -> torch.Tensor:
     """``count_stats`` over stacked tables: tables int32[K, n, w]; inst
     int32[L]; mask/valid int32[L, w] -> int32[L, 4], lane l reduced
     against ``tables[inst[l]]``; see ``ref.stacked_count_stats_ref``.
@@ -86,7 +105,8 @@ def stacked_count_stats(tables: torch.Tensor, inst: torch.Tensor,
     on ``inst >= K`` (one clips, one parks), so the contract excludes it.
     This wrapper raises on it where ``inst`` already lies on the host; on
     the card checking would cost a device sync, and the kernel parks such
-    a lane rather than read outside the tables.
+    a lane rather than read outside the tables.  ``route`` as for
+    ``count_stats``.
     """
     if tables.dim() != 3 or inst.dim() != 1:
         raise ValueError("stacked_count_stats wants tables [K, n, w], inst "
@@ -106,7 +126,11 @@ def stacked_count_stats(tables: torch.Tensor, inst: torch.Tensor,
         if t.device != mask.device:
             raise ValueError(f"stacked_count_stats: {name} is on "
                              f"{t.device}, mask on {mask.device}")
+    _, n, w = tables.shape
+    lanes = mask.shape[0]
     if tables.device.type == "cpu":
+        if route is not None:
+            _route("stacked_count_stats", route, n, w, lanes, k)
         if int(inst.max()) >= k:
             raise ValueError(f"stacked_count_stats: instance id "
                              f"{int(inst.max())} >= K={k}")
@@ -114,12 +138,11 @@ def stacked_count_stats(tables: torch.Tensor, inst: torch.Tensor,
     if tables.device.type != "cuda":
         raise ValueError(f"stacked_count_stats has no kernel for "
                          f"{tables.device}")
-    _, n, w = tables.shape
-    lanes = mask.shape[0]
+    wide = _route("stacked_count_stats", route, n, w, lanes, k)
     out = torch.empty((lanes, 4), dtype=torch.int32, device=tables.device)
-    _build.launch("stacked_count_stats", [_PTR] * 5 + [_INT] * 4,
+    _build.launch("stacked_count_stats", [_PTR] * 5 + [_INT] * 5,
                   [tables.data_ptr(), inst.data_ptr(), mask.data_ptr(),
-                   valid.data_ptr(), out.data_ptr(), k, n, w, lanes],
+                   valid.data_ptr(), out.data_ptr(), k, n, w, lanes, wide],
                   tables.device)
     return out
 

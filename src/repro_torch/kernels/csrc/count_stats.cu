@@ -37,7 +37,8 @@
 // and enough warps are resident to hide the latency of the loads and of
 // the products (four were slower on the card, sixteen no faster).
 //
-// Rows of more than 32 words (n > 1024) take count_stats_wide_kernel: the
+// Rows of more than 32 words (n > 1024) take count_stats_wide_kernel, and
+// any row width may take it where kernels/autotune.py picks the route: the
 // same products and tile walk, and the same epilogue (fold_tile) and
 // reductions (combine_and_store), but the A fragments are not held for
 // every k-step (4 registers a step, without bound in w).  Each tile
@@ -220,8 +221,9 @@ count_stats_kernel(const uint32_t* __restrict__ table,
                     mcount_b, warp, g, q, lane0, lanes, s_key, s_sum, out);
 }
 
-// The wide path (w > 32): count_stats_kernel with the k-steps a loop and
-// each step's A fragments loaded where the product needs them.
+// The wide route (any w; the only one for w > 32): count_stats_kernel with
+// the k-steps a loop and each step's A fragments loaded where the product
+// needs them.
 __global__ void __launch_bounds__(kWarps * 32)
 count_stats_wide_kernel(const uint32_t* __restrict__ table,
                         const uint32_t* __restrict__ mask,
@@ -285,20 +287,21 @@ void launch(const uint32_t* table, const uint32_t* mask,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Takes w >= 1 words per row and n <= 32 * w vertices; w > 32 takes the
-// wide path.
+// Takes w >= 1 words per row and n <= 32 * w vertices.  `wide` picks the
+// route (kernels/autotune.py): 0 the narrow kernel, which takes w <= 32
+// only; 1 count_stats_wide_kernel, which takes any w.
 extern "C" int count_stats_launch(const void* table, const void* mask,
                                   const void* valid, void* out, int n, int w,
-                                  int lanes, void* stream) {
+                                  int lanes, int wide, void* stream) {
   const auto* tb = static_cast<const uint32_t*>(table);
   const auto* mk = static_cast<const uint32_t*>(mask);
   const auto* vd = static_cast<const uint32_t*>(valid);
   auto* o = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || w < 1 || lanes < 1 || n > 32LL * w) {
+  if (n < 1 || w < 1 || lanes < 1 || n > 32LL * w || (!wide && w > 32)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (w > 32) {
+  if (wide) {
     const int blocks = (lanes + kLanesPerBlock - 1) / kLanesPerBlock;
     count_stats_wide_kernel<<<blocks, kWarps * 32, 0, s>>>(tb, mk, vd, o, n,
                                                            w, lanes);

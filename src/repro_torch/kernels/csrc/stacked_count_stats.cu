@@ -34,7 +34,8 @@
 // over the warp makes the result deterministic.  The base pointer
 // tables + inst[l] * n * w takes the place of the scalar-prefetch index
 // map; a parked lane's warp leaves before it loads anything but its id.
-// Rows of more than 32 words (n > 1024) take stacked_count_stats_wide_kernel:
+// Rows of more than 32 words (n > 1024) take stacked_count_stats_wide_kernel,
+// and any row width may take it where kernels/autotune.py picks the route:
 // the same warp per lane, but the lane's mask and valid words (2 * w
 // registers, without bound in w) are read where they are needed; every
 // thread of the warp reads the same word at once, a broadcast from L1
@@ -119,8 +120,8 @@ stacked_count_stats_kernel(const uint32_t* __restrict__ tables,
   }
 }
 
-// The wide path (w > 32): stacked_count_stats_kernel without the lane's
-// words in registers.
+// The wide route (any w; the only one for w > 32):
+// stacked_count_stats_kernel without the lane's words in registers.
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 stacked_count_stats_wide_kernel(const uint32_t* __restrict__ tables,
                                 const int32_t* __restrict__ inst,
@@ -197,12 +198,13 @@ void launch(const uint32_t* tables, const int32_t* inst,
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Takes K >= 1 tables, w >= 1 words per row and n <= 32 * w vertices; w > 32
-// takes the wide path.
+// Takes K >= 1 tables, w >= 1 words per row and n <= 32 * w vertices.
+// `wide` picks the route (kernels/autotune.py): 0 the narrow kernels, which
+// take w <= 32 only; 1 stacked_count_stats_wide_kernel, which takes any w.
 extern "C" int stacked_count_stats_launch(const void* tables,
                                           const void* inst, const void* mask,
                                           const void* valid, void* out, int k,
-                                          int n, int w, int lanes,
+                                          int n, int w, int lanes, int wide,
                                           void* stream) {
   const auto* tb = static_cast<const uint32_t*>(tables);
   const auto* in = static_cast<const int32_t*>(inst);
@@ -210,10 +212,11 @@ extern "C" int stacked_count_stats_launch(const void* tables,
   const auto* vd = static_cast<const uint32_t*>(valid);
   auto* o = static_cast<int32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (k < 1 || n < 1 || w < 1 || lanes < 1 || n > 32LL * w) {
+  if (k < 1 || n < 1 || w < 1 || lanes < 1 || n > 32LL * w ||
+      (!wide && w > 32)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (w > 32) {
+  if (wide) {
     const int blocks = (lanes + kWarpsPerBlock - 1) / kWarpsPerBlock;
     stacked_count_stats_wide_kernel<<<blocks, kWarpsPerBlock * 32, 0, s>>>(
         tb, in, mk, vd, o, k, n, w, lanes);

@@ -1,9 +1,10 @@
 """Multi-tenant solver service launcher of the port (counterpart of
-``repro.launch.serve_solver``): many instances, one lane pool, one device.
+``repro.launch.serve_solver``): many instances, one lane pool.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_solver \\
       --instances vc:gnp:20:30:5@prio=2,ds:gnp:16:30:7@deadline=60 \\
       --lanes 32 --slots 4 [--scheduler sjf] [--device cpu] \\
+      [--devices 4] [--max-ship 16] [--autoscale 8] \\
       [--ckpt svc.ckpt] [--ckpt-every 10] [--resume] \\
       [--trace svc.jsonl] [--metrics]
 
@@ -21,8 +22,10 @@ submission) and ``budget=<nodes>`` (evict after that many search nodes).
 runs the plain PyTorch path.  The per-request lines and the final
 ``drained ... in R rounds`` line have the reference's format, and so have
 ``--trace`` (the JSONL trace ``tools/trace_report.py`` reads) and
-``--metrics`` (the ``metrics:`` line).  ``--devices`` other than 1 and
-``--autoscale`` (the mesh path) are not ported yet and are refused.
+``--metrics`` (the ``metrics:`` line).  ``--devices N`` shards the lane
+pool over ``make_mesh(N, --device)`` (``--lanes`` is PER SHARD: the first
+N cards, or N shards of the CPU) and ``--autoscale MAXDEV`` lets the
+service grow and shrink its mesh with the admission queue depth.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import time
 
 from repro_torch import registry
 from repro_torch.core.api import resolve_device
-from repro_torch.service import SCHEDULERS, SolveRequest, SolverService
+from repro_torch.core.distributed import make_mesh
+from repro_torch.service import (SCHEDULERS, AutoscalePolicy, SolveRequest,
+                                 SolverService)
 from repro_torch.solver import Solver, SolverConfig
 
 _ATTRS = {"prio": "priority", "deadline": "deadline_rounds",
@@ -89,6 +94,15 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (plain PyTorch)")
     ap.add_argument("--steps-per-round", type=int, default=64)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shard the lane pool over N devices of --device "
+                         "(--lanes is PER SHARD)")
+    ap.add_argument("--max-ship", type=int, default=16,
+                    help="cross-device tasks shipped per shard per round")
+    ap.add_argument("--autoscale", type=int, default=0, metavar="MAXDEV",
+                    help="grow/shrink the mesh elastically up to MAXDEV "
+                         "shards, keyed on admission queue depth "
+                         "(starts at --devices)")
     ap.add_argument("--ckpt", default=None,
                     help="service checkpoint path (written every "
                          "--ckpt-every rounds and after the drain)")
@@ -96,10 +110,6 @@ def main() -> None:
                     help="rounds between mid-run checkpoints (0 = final only)")
     ap.add_argument("--resume", action="store_true",
                     help="restore the service from --ckpt before serving")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="not ported yet: only 1 is accepted")
-    ap.add_argument("--autoscale", type=int, default=0,
-                    help="not ported yet: only 0 is accepted")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write a JSONL service trace (repro_torch.obs "
                          "schema; summarize with tools/trace_report.py)")
@@ -107,19 +117,16 @@ def main() -> None:
                     help="collect in-process metrics and print a summary")
     args = ap.parse_args()
 
-    refused = [flag for flag, value in (
-        ("--devices", args.devices != 1),
-        ("--autoscale", args.autoscale != 0)) if value]
-    if refused:
-        ap.error(f"{', '.join(refused)}: not ported to repro_torch yet (the "
-                 f"service's mesh path is ROADMAP Queue 1 item 9); use "
-                 f"python -m repro.launch.serve_solver")
     if args.resume and not args.ckpt:
         ap.error("--resume requires --ckpt")
     try:
-        resolve_device(args.device)
+        device_type = resolve_device(args.device).type
+        mesh = (make_mesh(args.devices, device_type)
+                if args.devices > 1 else None)
     except (ValueError, RuntimeError) as e:
         ap.error(str(e))
+    autoscale = (AutoscalePolicy(max_devices=args.autoscale)
+                 if args.autoscale > 1 else None)
 
     workload = parse_workload(args.instances, args.repeat)
     if args.resume:
@@ -127,8 +134,10 @@ def main() -> None:
                                     steps_per_round=args.steps_per_round,
                                     device=args.device,
                                     scheduler=args.scheduler,
+                                    mesh=mesh, max_ship=args.max_ship,
                                     trace_path=args.trace,
                                     metrics=args.metrics)
+        svc.autoscale = autoscale
         print(f"restored service: slots={svc.slot_rid} "
               f"queue={len(svc.queue)} pool={len(svc.pool)} "
               f"rounds={svc.rounds} scheduler={svc.sched.policy.name}")
@@ -143,6 +152,8 @@ def main() -> None:
                               steps_per_round=args.steps_per_round,
                               device=args.device,
                               scheduler=args.scheduler or "priority",
+                              mesh=mesh, max_ship=args.max_ship,
+                              autoscale=autoscale,
                               trace_path=args.trace, metrics=args.metrics)
         svc = Solver(config).serve(max_n=max_n, slots=args.slots)
         rid0 = 0
@@ -152,7 +163,8 @@ def main() -> None:
         svc.submit(r)
 
     print(f"serving {len(reqs)} requests over {svc.num_lanes} lanes "
-          f"(1 device) / {svc.spec.k} slots (padded n={svc.spec.n}, "
+          f"({svc.n_devices} device(s) x {svc.lanes_per_device}) / "
+          f"{svc.spec.k} slots (padded n={svc.spec.n}, "
           f"device={svc.device}, scheduler={svc.sched.policy.name})")
     t0 = time.time()
     while svc._has_work():

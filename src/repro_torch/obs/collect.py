@@ -62,12 +62,12 @@ _LANE_FIELDS = ("nodes", "t_s", "t_r", "donated", "t_c", "inst", "active",
 
 
 class RoundCollector:
-    """Host-side per-round metrics + trace collection for one run on one
-    device."""
+    """Host-side per-round metrics + trace collection for one run, on one
+    device or sharded over ``devices`` shards (per-shard gauges)."""
 
     def __init__(self, *, mode: str, lanes: int, slots: int,
                  steps_per_round: int, fused_steps: int = 1,
-                 backend: str = "cuda",
+                 backend: str = "cuda", devices: int = 1,
                  registry: Optional[MetricsRegistry] = None,
                  trace: Optional[TraceWriter] = None):
         if mode not in ("solve", "service"):
@@ -76,6 +76,7 @@ class RoundCollector:
         self.num_lanes = int(lanes)
         self.slots = int(slots)
         self.fused_steps = max(1, int(fused_steps))
+        self.devices = max(1, int(devices))   # lane pool shards (mesh)
         self.registry = registry if registry is not None else MetricsRegistry()
         self.trace = trace
 
@@ -100,10 +101,10 @@ class RoundCollector:
         self.h_ship = r.histogram("steal_ship_depth",
                                   "depth of shipped subtree roots",
                                   buckets=_SHIP_BUCKETS)
-        # The reference's per-device gauges, declared so both registries
-        # hold the same instruments; on one device they are never set.
-        r.gauge("device_nodes", "nodes expanded last round, per device shard")
-        r.gauge("device_active_lanes", "active lanes at round end, per device")
+        self.g_dev_nodes = r.gauge(
+            "device_nodes", "nodes expanded last round, per device shard")
+        self.g_dev_active = r.gauge(
+            "device_active_lanes", "active lanes at round end, per device")
         if mode == "service":
             self.g_queue = r.gauge("service_queue_depth",
                                    "queued (unadmitted) requests")
@@ -127,7 +128,7 @@ class RoundCollector:
                         lanes=self.num_lanes, slots=self.slots,
                         steps_per_round=int(steps_per_round),
                         fused_steps=self.fused_steps, backend=backend,
-                        devices=1)
+                        devices=self.devices)
 
     # -- round boundaries ---------------------------------------------------
 
@@ -208,6 +209,15 @@ class RoundCollector:
         if self.mode == "service":
             self.g_queue.set(int(queue_depth))
 
+        # Per-shard lane metrics: shard d owns lanes [d*W/D, (d+1)*W/D).
+        dev_nodes = dev_active = None
+        if self.devices > 1 and self.num_lanes % self.devices == 0:
+            dev_nodes = d_nodes.reshape(self.devices, -1).sum(axis=1)
+            dev_active = active.reshape(self.devices, -1).sum(axis=1)
+            for d in range(self.devices):
+                self.g_dev_nodes.set(int(dev_nodes[d]), device=d)
+                self.g_dev_active.set(int(dev_active[d]), device=d)
+
         improved = []
         for slot in range(self.slots):
             b = int(best[slot])
@@ -228,11 +238,37 @@ class RoundCollector:
                 steps=d_steps, dispatches=dispatches,
                 inst_nodes=[int(x) for x in inst_delta],
                 ship_depths=ship_depths, best=[int(b) for b in best],
-                queue_depth=int(queue_depth))
+                queue_depth=int(queue_depth),
+                dev_nodes=(None if dev_nodes is None
+                           else [int(x) for x in dev_nodes]),
+                dev_active=(None if dev_active is None
+                            else [int(x) for x in dev_active]))
             for slot, b, rid in improved:
                 self.trace.write("incumbent", round=int(round_no), inst=slot,
                                  best=b, rid=rid)
         return inst_delta
+
+    # -- elastic events -----------------------------------------------------
+
+    def resize(self, num_lanes: int, *, devices: int,
+               round_no: int) -> None:
+        """Re-shape the per-lane accounting after an elastic pool resize.
+        As the engine's carried counters do (checkpoint restore and
+        ``repartition`` sum each counter onto lane 0), the per-lane totals
+        collapse onto lane 0 of the new layout, so the summary ledger
+        (sum(lane_nodes) == nodes == sum(inst_nodes)) stays exact across
+        resizes.  The delta baseline is dropped: the driver re-baselines
+        through ``before_round(dirty=True)`` on the rebuilt lanes."""
+        self.num_lanes = int(num_lanes)
+        self.devices = max(1, int(devices))
+        for key, old in self._lane.items():
+            carried = np.zeros((self.num_lanes,), np.int64)
+            carried[0] = old.sum()
+            self._lane[key] = carried
+        self._base = None
+        if self.trace is not None:
+            self.trace.write("resize", round=int(round_no),
+                             lanes=self.num_lanes, devices=self.devices)
 
     # -- request lifecycle (service) ----------------------------------------
 

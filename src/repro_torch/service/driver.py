@@ -1,5 +1,5 @@
-"""Continuous-batching solver service over one lane pool, on one device
-(counterpart of ``repro.service.driver`` without its mesh path).
+"""Continuous-batching solver service over one lane pool (counterpart of
+``repro.service.driver``).
 
   * the *pool* is W engine lanes advancing in lockstep under one round
     (expand -> instance-scoped steal -> per-instance open-work count);
@@ -35,7 +35,14 @@ Telemetry (``trace_path``, ``metrics``) rides one
 ``repro_torch.obs.RoundCollector``, fed at round boundaries: its one copy
 of the lane counters per round also serves node-budget accounting.
 
-Not ported yet: the mesh path (``mesh``, ``resize``, ``maybe_autoscale``).
+Sharded (``mesh``, DESIGN.md §9): the pool is split over the mesh's
+shards, ``num_lanes`` per shard; the stacked tables are bound once per
+distinct device and every admission writes each copy; rounds steal across
+shards (``repro_torch.core.distributed``).  Host surgery reads the
+gathered lanes, writes back only the fields it changed, shard by shard,
+and replays stacks per shard.  ``resize`` re-lays the pool onto another
+mesh or lane count between rounds, through ``checkpoint.repartition``;
+``maybe_autoscale`` asks an ``AutoscalePolicy`` each round.
 """
 
 from __future__ import annotations
@@ -50,12 +57,15 @@ from repro_torch import registry
 from repro_torch.convert import stacked_tables
 from repro_torch.core import checkpoint as ckpt
 from repro_torch.core.api import INF_VALUE, UNVISITED, resolve_device, tree_map
-from repro_torch.core.distributed import make_round
-from repro_torch.core.engine import NO_INSTANCE, init_lanes
+from repro_torch.core.distributed import (Mesh, ShardedLanes, _gather_lanes,
+                                         _shard_lanes, available_devices,
+                                         make_round, replace_sharded)
+from repro_torch.core.engine import NO_INSTANCE, Lanes, init_lanes
 from repro_torch.problems.graphs import Graph, num_words
 from repro_torch.service.batch_problem import StackedSpec, StackedTables
-from repro_torch.service.scheduler import (QueueItem, Scheduler,
-                                           SchedulingPolicy, make_policy)
+from repro_torch.service.scheduler import (AutoscalePolicy, QueueItem,
+                                           Scheduler, SchedulingPolicy,
+                                           make_policy)
 from repro_torch.service.ticket import (TERMINAL, AdmissionError,
                                         RequestResult, SolveRequest, Ticket,
                                         TicketStatus)
@@ -114,12 +124,14 @@ class SolverService:
                     on_event: Optional[Callable[[Any], None]] = None
                     ) -> "SolverService":
         """The facade constructor: lanes / steps_per_round / device /
-        scheduler / fused_steps / telemetry come from a
-        :class:`repro_torch.solver.SolverConfig`."""
+        scheduler / fused_steps / mesh / max_ship / autoscale / telemetry
+        come from a :class:`repro_torch.solver.SolverConfig`."""
         return cls._create(max_n=max_n, slots=slots, num_lanes=config.lanes,
                            steps_per_round=config.steps_per_round,
                            device=config.device, scheduler=config.scheduler,
-                           fused_steps=config.fused_steps,
+                           fused_steps=config.fused_steps, mesh=config.mesh,
+                           max_ship=config.max_ship,
+                           autoscale=config.autoscale,
                            trace_path=config.trace_path,
                            metrics=config.metrics, on_event=on_event)
 
@@ -132,24 +144,27 @@ class SolverService:
     def _init(self, *, max_n: int, slots: int, num_lanes: int,
               steps_per_round: int = 64, device: str = "cuda",
               scheduler: Union[str, SchedulingPolicy] = "priority",
-              fused_steps: int = 1, trace_path: Optional[str] = None,
-              metrics: bool = False,
+              fused_steps: int = 1, mesh: Optional[Mesh] = None,
+              max_ship: int = 16,
+              autoscale: Optional[AutoscalePolicy] = None,
+              trace_path: Optional[str] = None, metrics: bool = False,
               on_event: Optional[Callable[[Any], None]] = None):
         self.spec = StackedSpec(n=max_n, k=slots)
         self.device = resolve_device(device)
         self.steps_per_round = steps_per_round
         self.fused_steps = fused_steps
+        self.max_ship = max_ship              # cross-device ship cap / round
         self.on_event = on_event
-        self.num_lanes = num_lanes
+        self.autoscale = autoscale            # elasticity policy, or None
         self.tables = self.spec.empty_tables()            # host numpy
-        # Preallocated once and written in place at admission: the bound
-        # problem and the round below close over these very tensors.
-        self._tables_dev = stacked_tables(self.tables, self.device)
-        self.problem = self.spec.bind(self._tables_dev, self.device)
-        self._round = make_round(self.problem, steps_per_round,
-                                 fused_steps=fused_steps)
-        self.lanes = init_lanes(self.problem, num_lanes, seed_root=False,
-                                bind_instance=False)
+        # Mesh layout: ``num_lanes`` is the PER-SHARD lane count.
+        self.mesh = mesh
+        self.n_devices = mesh.size if mesh is not None else 1
+        self.lanes_per_device = num_lanes
+        self.num_lanes = num_lanes * self.n_devices
+        self._build_round_fns()
+        self._set_lanes(init_lanes(self.problem, self.num_lanes,
+                                   seed_root=False, bind_instance=False))
 
         policy = (scheduler if not isinstance(scheduler, str)
                   else make_policy(scheduler))
@@ -173,11 +188,57 @@ class SolverService:
         if metrics or trace_path is not None:
             from repro_torch import obs
             self._collector = obs.RoundCollector(
-                mode="service", lanes=num_lanes, slots=slots,
+                mode="service", lanes=self.num_lanes, slots=slots,
                 steps_per_round=steps_per_round, fused_steps=fused_steps,
-                backend=self.device.type,
+                backend=self.device.type, devices=self.n_devices,
                 trace=obs.TraceWriter(trace_path) if trace_path else None)
             self._collector.start(self.lanes)
+
+    def _build_round_fns(self) -> None:
+        """(Re)build the device tables, the bound problems and the round
+        for the current mesh: called at construction and by
+        :meth:`resize`.  The tables are bound once per distinct device;
+        each copy is written in place at admission, and the problems and
+        the round close over these very tensors."""
+        mesh = self.mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type} devices for a "
+                             f"service on {self.device.type}")
+        devices = mesh.distinct() if mesh is not None else (self.device,)
+        self._home = mesh.devices[0] if mesh is not None else self.device
+        self._tables_by_dev = {dev: stacked_tables(self.tables, dev)
+                               for dev in devices}
+        problems = {dev: self.spec.bind(tables, dev)
+                    for dev, tables in self._tables_by_dev.items()}
+        self._tables_dev = self._tables_by_dev[self._home]
+        self.problem = problems[self._home]       # where gathered lanes live
+        self._problems = problems
+        self._round = make_round(self.problem if mesh is None else problems,
+                                 self.steps_per_round,
+                                 fused_steps=self.fused_steps, mesh=mesh,
+                                 max_ship=self.max_ship)
+
+    def _set_lanes(self, lanes: Lanes) -> None:
+        """Adopt ``lanes`` (all of them, on the home device), sharded over
+        the mesh when there is one."""
+        self.lanes = (lanes if self.mesh is None
+                      else _shard_lanes(lanes, self.mesh))
+
+    def _replace_lanes(self, **fields) -> None:
+        """``Lanes._replace`` of the pool with gathered-layout values; on a
+        mesh each shard takes its slice of each field and keeps the rest."""
+        self.lanes = (self.lanes._replace(**fields) if self.mesh is None
+                      else replace_sharded(self.lanes, self.mesh, **fields))
+
+    def _rebuild_stacks(self) -> None:
+        """CONVERTINDEX replay of every active lane's stack, per shard."""
+        if self.mesh is None:
+            self.lanes = ckpt.rebuild_stacks(self.problem, self.lanes)
+        else:
+            self.lanes = ShardedLanes([
+                ckpt.rebuild_stacks(self._problems[dev], shard)
+                for dev, shard in zip(self.mesh.devices,
+                                      self.lanes.shards)])
 
     def metrics(self):
         """``repro_torch.obs.MetricsSnapshot`` of this service's registry,
@@ -197,13 +258,13 @@ class SolverService:
     # -- host/device plumbing ----------------------------------------------
 
     def _write_slot(self, slot: int) -> None:
-        """Copy host slot ``slot`` into the device tables, in place."""
-        dev = self._tables_dev
-        dev.adj[slot].copy_(torch.from_numpy(
-            self.tables.adj[slot].view(np.int32)))
-        dev.fullm[slot].copy_(torch.from_numpy(
-            self.tables.fullm[slot].view(np.int32)))
-        dev.family[slot] = int(self.tables.family[slot])
+        """Copy host slot ``slot`` into every device's tables, in place."""
+        for dev in self._tables_by_dev.values():
+            dev.adj[slot].copy_(torch.from_numpy(
+                self.tables.adj[slot].view(np.int32)))
+            dev.fullm[slot].copy_(torch.from_numpy(
+                self.tables.fullm[slot].view(np.int32)))
+            dev.family[slot] = int(self.tables.family[slot])
 
     def _write_tables(self) -> None:
         """Copy every host slot into the device tables, in place."""
@@ -211,7 +272,7 @@ class SolverService:
             self._write_slot(slot)
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
+        return torch.from_numpy(arr).to(self._home)
 
     # -- the ticketed front door -------------------------------------------
 
@@ -395,15 +456,15 @@ class SolverService:
         if not changed and not retargeted:
             self._placement_clean = len(live) <= 1
             return False
-        self.lanes = self.lanes._replace(
-            **{f: self._to_dev(h[f]) for f in _HOST_FIELDS},
-            best_payload=(self.lanes.best_payload if payload_host is None
-                          else tree_map(self._to_dev, payload_host)))
+        fields = {f: self._to_dev(h[f]) for f in _HOST_FIELDS}
+        if payload_host is not None:
+            fields["best_payload"] = tree_map(self._to_dev, payload_host)
+        self._replace_lanes(**fields)
         if changed:
             # CONVERTINDEX replay rebuilds the stacks of seeded/installed
             # lanes (replaying untouched active lanes is a no-op by the
             # determinism contract).
-            self.lanes = ckpt.rebuild_stacks(self.problem, self.lanes)
+            self._rebuild_stacks()
         self._placement_clean = len(live) <= 1
         return changed
 
@@ -437,7 +498,7 @@ class SolverService:
                 h_inst = _host(self.lanes.inst).copy()  # event-driven
             h_inst[h_inst == slot] = NO_INSTANCE
         if h_inst is not None:
-            self.lanes = self.lanes._replace(inst=self._to_dev(h_inst))
+            self._replace_lanes(inst=self._to_dev(h_inst))
             self._placement_clean = False
 
     def _evict_slot(self, slot: int, status: str) -> RequestResult:
@@ -461,8 +522,8 @@ class SolverService:
         mine = inst == slot
         active[mine] = False
         inst[mine] = NO_INSTANCE
-        self.lanes = self.lanes._replace(inst=self._to_dev(inst),
-                                         active=self._to_dev(active))
+        self._replace_lanes(inst=self._to_dev(inst),
+                            active=self._to_dev(active))
         self.pool = [t for t in self.pool if t.inst != slot]
         return result
 
@@ -547,6 +608,7 @@ class SolverService:
         self._emit_incumbents()
         self._retire(open_np)
         self._expire()
+        self.maybe_autoscale()
         return open_np
 
     def drain(self, max_rounds: int = 100000) -> Dict[int, RequestResult]:
@@ -572,6 +634,71 @@ class SolverService:
         for r in requests or []:
             self.submit(r)
         return self.drain(max_rounds)
+
+    # -- elastic mesh membership --------------------------------------------
+
+    def resize(self, *, mesh: Optional[Mesh] = None,
+               num_lanes: Optional[int] = None) -> None:
+        """Re-lay the live pool onto another mesh and/or per-shard lane
+        count between rounds (the join-leave half of paper §VII, in
+        memory).
+
+        Goes through ``checkpoint.repartition``: the first W' in-flight
+        tasks land on the new lanes, the surplus parks in the
+        instance-tagged pending pool, per-instance incumbents and the
+        aggregate counters carry over exactly.  Tickets, results, queue
+        and tables stay live in place.  The tables, problems and round are
+        rebuilt for the new mesh.
+        """
+        per_dev = (self.lanes_per_device if num_lanes is None
+                   else int(num_lanes))
+        n_dev = mesh.size if mesh is not None else 1
+        total = per_dev * n_dev
+        if total < 1:
+            raise ValueError(f"resize to {total} lanes")
+        old_dev, old_total = self.n_devices, self.num_lanes
+        lanes = _gather_lanes(self.lanes)
+        old_mesh = self.mesh
+        self.mesh = mesh
+        try:
+            self._build_round_fns()
+        except ValueError:
+            self.mesh = old_mesh
+            raise
+        new_lanes, surplus = ckpt.repartition(self.problem, lanes, total)
+        self.n_devices = n_dev
+        self.lanes_per_device = per_dev
+        self.num_lanes = total
+        self._set_lanes(new_lanes)
+        self.pool.extend(surplus)
+        self._placement_clean = False
+        if self._collector is not None:
+            self._collector.resize(total, devices=n_dev,
+                                   round_no=self.rounds)
+        self._emit("resize", reason=f"devices {old_dev}->{n_dev}, "
+                                    f"lanes {old_total}->{total}")
+
+    def maybe_autoscale(self) -> bool:
+        """Ask the :class:`AutoscalePolicy` (when configured) whether to
+        change the shard count, and :meth:`resize` if so.  Runs once per
+        round from :meth:`step_round`.  The shards come from
+        ``distributed.available_devices``: on ``cuda`` the cards present
+        (one card never grows), on ``cpu`` up to the policy's
+        ``max_devices`` shards."""
+        if self.autoscale is None:
+            return False
+        target = self.autoscale.decide(
+            queue_depth=self.sched.queue_depth(), devices=self.n_devices,
+            now_round=self.rounds,
+            busy=any(r >= 0 for r in self.slot_rid) or bool(self.pool))
+        if target is None or target == self.n_devices:
+            return False
+        devices = available_devices(self.device.type,
+                                    self.autoscale.max_devices)
+        if target > len(devices):
+            return False
+        self.resize(mesh=Mesh(devices[:target]) if target > 1 else None)
+        return True
 
     # -- elastic checkpoint -------------------------------------------------
 
@@ -644,14 +771,18 @@ class SolverService:
     def restore(cls, path: str, *, num_lanes: int,
                 steps_per_round: int = 64, device: str = "cuda",
                 scheduler: Optional[Union[str, SchedulingPolicy]] = None,
-                fused_steps: int = 1, trace_path: Optional[str] = None,
+                fused_steps: int = 1, mesh: Optional[Mesh] = None,
+                max_ship: int = 16, trace_path: Optional[str] = None,
                 metrics: bool = False,
                 on_event: Optional[Callable[[Any], None]] = None
                 ) -> "SolverService":
-        """Rebuild the service onto ``num_lanes`` lanes (elastic W' != W)
-        on ``device``.  Surplus in-flight tasks wait in the pending pool;
-        queued requests are restored with their admission sequence, so the
-        queue pops in the saved order; every ticket's state round-trips.
+        """Rebuild the service onto ``num_lanes`` lanes per shard (elastic
+        W' != W) on ``device``, sharded over ``mesh`` when given (the
+        mesh, like the lane count, is an execution choice: a service saved
+        on one shard count restores on any other).  Surplus in-flight tasks
+        wait in the pending pool; queued requests are restored with their
+        admission sequence, so the queue pops in the saved order; every
+        ticket's state round-trips.
         ``scheduler`` defaults to the checkpointed policy.  With
         ``trace_path`` / ``metrics`` the restored service is traced, its
         deltas counted from the restored lanes."""
@@ -665,14 +796,16 @@ class SolverService:
                           steps_per_round=steps_per_round, device=device,
                           scheduler=(meta["scheduler"] if scheduler is None
                                      else scheduler),
-                          fused_steps=fused_steps, trace_path=trace_path,
+                          fused_steps=fused_steps, mesh=mesh,
+                          max_ship=max_ship, trace_path=trace_path,
                           metrics=metrics, on_event=on_event)
         svc.tables = StackedTables(
             adj=extra["adj"].astype(np.uint32),
             fullm=extra["fullm"].astype(np.uint32),
             family=extra["family"].astype(np.int32))
         svc._write_tables()
-        svc.lanes, svc.pool = ckpt.restore(path, svc.problem, svc.num_lanes)
+        lanes, svc.pool = ckpt.restore(path, svc.problem, svc.num_lanes)
+        svc._set_lanes(lanes)
         for i in range(extra["pool_idx"].shape[0]):
             d, b, inst = (int(x) for x in extra["pool_meta"][i])
             svc.pool.append(ckpt.PendingTask(extra["pool_idx"][i].copy(),

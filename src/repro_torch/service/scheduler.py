@@ -23,10 +23,15 @@ engine over lanes and slots, and ALL policy lives here:
   budgets, Avis & Jordan 2017).  The driver asks ``overdue(round)`` each
   round and performs the lane/slot surgery; the scheduler never touches
   device state.
+
+* :class:`AutoscalePolicy` — the elasticity decision of the sharded
+  service: a target shard count keyed on the queue depth, which the
+  driver carries out with ``SolverService.resize``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import heapq
 from typing import Dict, List, NamedTuple, Optional, Protocol, Tuple
 
@@ -35,6 +40,7 @@ from repro_torch.service.ticket import (TERMINAL, SolveRequest, Ticket,
                                         TicketStatus)
 
 __all__ = [
+    "AutoscalePolicy",
     "Fifo",
     "PriorityFifo",
     "QueueItem",
@@ -173,6 +179,46 @@ def make_policy(name: str) -> SchedulingPolicy:
         raise ValueError(
             f"unknown scheduling policy {name!r} (known: "
             f"{', '.join(sorted(SCHEDULERS))})") from None
+
+
+@dataclasses.dataclass
+class AutoscalePolicy:
+    """Elasticity decisions keyed on :meth:`Scheduler.queue_depth` (the
+    reference's, DESIGN.md §9).
+
+    The sharded service driver asks :meth:`decide` once per round and
+    performs the mechanics itself (``SolverService.resize``: an in-memory
+    elastic W' != W checkpoint/restore onto another shard count).
+
+    * grow when the admission queue has backed up to ``grow_at`` or more;
+    * shrink when it has drained to ``shrink_below`` or fewer AND the run
+      is not using its open capacity (the driver passes ``busy=False``
+      when no slot is live and no restored task waits);
+    * never outside [min_devices, max_devices], never within
+      ``cooldown_rounds`` of the previous change (a resize rebuilds the
+      round, so flapping is the failure mode this guards).
+    """
+
+    grow_at: int = 2
+    shrink_below: int = 0
+    min_devices: int = 1
+    max_devices: int = 1
+    cooldown_rounds: int = 8
+    _last_change: int = dataclasses.field(default=-(10 ** 9), repr=False)
+
+    def decide(self, *, queue_depth: int, devices: int, now_round: int,
+               busy: bool = True) -> Optional[int]:
+        """Target device count, or None to stay put."""
+        if now_round - self._last_change < self.cooldown_rounds:
+            return None
+        if queue_depth >= self.grow_at and devices < self.max_devices:
+            self._last_change = now_round
+            return min(self.max_devices, devices * 2)
+        if (queue_depth <= self.shrink_below and not busy
+                and devices > self.min_devices):
+            self._last_change = now_round
+            return max(self.min_devices, devices // 2)
+        return None
 
 
 class Scheduler:

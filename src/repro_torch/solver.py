@@ -11,9 +11,11 @@
 ``device`` takes the place of the reference's ``backend``: on "cuda" the
 node evaluation launches the CUDA kernels, on "cpu" it runs the plain
 versions.  "cuda" is the default and raises when no card is present.
-Telemetry (``trace_path``, ``metrics``) is the reference's.  The mesh
-(``mesh``, ``max_ship``, ``autoscale``) comes with a later slice: a config
-that sets it is refused.
+Telemetry (``trace_path``, ``metrics``) is the reference's.  With
+``mesh`` (a ``repro_torch.core.distributed.Mesh``) the lanes are sharded
+over the mesh's devices, ``lanes`` per shard, and the rounds steal across
+shards (``max_ship`` tasks a shard a round); ``autoscale`` lets the
+service grow and shrink its mesh.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import torch
 
 from repro_torch import registry as _registry
 from repro_torch.core.api import BinaryProblem, resolve_device, tree_map
-from repro_torch.core.distributed import SolveStats, make_round
+from repro_torch.core.distributed import (Mesh, SolveStats, _gather_lanes,
+                                         _shard_lanes, make_round,
+                                         problems_per_shard)
 from repro_torch.core.engine import Lanes, init_lanes
 from repro_torch.core.serial import serial_rb
 
@@ -52,7 +56,7 @@ class SolverConfig:
     """Frozen execution policy for a solver session.
 
     Attributes:
-      lanes: engine lanes on the device.
+      lanes: engine lanes per device (total lanes = lanes x mesh shards).
       steps_per_round: engine steps between steal phases (R).
       max_rounds: hard round budget (bootstrap rounds included).
       bootstrap_rounds / bootstrap_steps: short ramp-up rounds that flood
@@ -74,8 +78,14 @@ class SolverConfig:
         ``MetricsSnapshot`` via ``Solver.metrics()`` /
         ``SolverService.metrics()`` and attached to "round"/"done"
         :class:`ProgressEvent`\\ s.
-      mesh / max_ship / autoscale: the reference's multi-device fields,
-        not ported yet; setting any of them raises ``ConfigError``.
+      mesh: a ``repro_torch.core.distributed.Mesh``, or None (one
+        device): honoured by :meth:`Solver.solve` and the sharded service.
+        Its devices are the shards' and must be of ``device``'s type.
+      max_ship: cross-device tasks shipped per shard per round.
+      autoscale: a ``repro_torch.service.scheduler.AutoscalePolicy`` (or
+        None), service only: each round the driver asks it for a target
+        shard count keyed on the admission queue depth and resizes the
+        mesh (``SolverService.resize``).  Ignored by :meth:`Solver.solve`.
     """
 
     lanes: int = 32
@@ -101,6 +111,8 @@ class SolverConfig:
         if self.steps_per_round < 1:
             raise ConfigError(
                 f"steps_per_round must be >= 1, got {self.steps_per_round}")
+        if self.max_ship < 1:
+            raise ConfigError(f"max_ship must be >= 1, got {self.max_ship}")
         if self.bootstrap_rounds < 0 or self.bootstrap_steps < 1:
             raise ConfigError(
                 f"bad bootstrap policy: rounds={self.bootstrap_rounds} "
@@ -121,19 +133,19 @@ class SolverConfig:
                 not isinstance(self.trace_path, str) or not self.trace_path):
             raise ConfigError(
                 f"trace_path must be a path, got {self.trace_path!r}")
-        unported = [name for name, is_set in (
-            ("mesh", self.mesh is not None),
-            ("max_ship", self.max_ship != 16),
-            ("autoscale", self.autoscale is not None)) if is_set]
-        if unported:
-            raise ConfigError(
-                f"SolverConfig {', '.join(unported)}: not ported to "
-                f"repro_torch yet (multi-GPU is ROADMAP Queue 1 item 9); "
-                f"use the repro package for them")
         try:
-            torch.device(self.device)
+            device_type = torch.device(self.device).type
         except (RuntimeError, TypeError) as e:
             raise ConfigError(f"bad device {self.device!r}: {e}") from None
+        if self.mesh is not None:
+            if not isinstance(self.mesh, Mesh):
+                raise ConfigError(
+                    f"mesh must be a repro_torch.core.distributed.Mesh, got "
+                    f"{type(self.mesh).__name__}")
+            if self.mesh.device_type != device_type:
+                raise ConfigError(
+                    f"mesh of {self.mesh.device_type} devices with device="
+                    f"{self.device!r}: the shards' devices are the mesh's")
 
 
 #: Every ProgressEvent kind a driver may emit (the reference's set).
@@ -212,13 +224,24 @@ class Solver:
         with ``SolverConfig(metrics=True)`` or ``trace_path=...``)."""
         return self._obs.snapshot() if self._obs is not None else None
 
-    def _resolve(self, problem) -> BinaryProblem:
-        """ProblemHandle -> BinaryProblem on the config's device; a raw
-        BinaryProblem passes through."""
+    def _resolve(self, problem):
+        """ProblemHandle -> BinaryProblem on the config's device, or with a
+        mesh one per distinct device of it (a device -> problem mapping);
+        a raw BinaryProblem passes through (with a mesh, its tables must
+        lie on every shard's device)."""
+        mesh = self.config.mesh
         if isinstance(problem, _registry.ProblemHandle):
-            return problem.build(device=str(resolve_device(
-                self.config.device)))
+            if mesh is None:
+                return problem.build(device=str(resolve_device(
+                    self.config.device)))
+            return {dev: problem.build(device=str(dev))
+                    for dev in mesh.distinct()}
         if isinstance(problem, BinaryProblem):
+            if mesh is not None:
+                try:
+                    problems_per_shard(problem, mesh)
+                except ValueError as e:
+                    raise ConfigError(str(e)) from e
             return problem
         raise TypeError(
             f"expected a registry.ProblemHandle or BinaryProblem, got "
@@ -234,8 +257,8 @@ class Solver:
         return OracleResult(best=best, nodes=nodes)
 
     def solve(self, problem) -> SolveResult:
-        """Run rounds until the work drains (the paper's PARALLEL-RB on
-        one device) or ``max_rounds`` is reached.  The host reads back one
+        """Run rounds until the work drains (the paper's PARALLEL-RB) or
+        ``max_rounds`` is reached.  The host reads back one
         value per round, the open-work count; with telemetry on, the
         collector copies the lane counters once more after it.
 
@@ -243,16 +266,31 @@ class Solver:
         any lane count (elastic restart, paper §VII): surplus tasks wait in
         a host-side pool and are installed into idle lanes at round
         boundaries.
+
+        With ``mesh`` the lanes are sharded, ``config.lanes`` per shard,
+        and every round (the bootstrap ones too) steals across shards.
+        ``SolveResult.lanes`` is then a ``ShardedLanes`` (its fields read
+        as the gathered arrays; ``.gather()`` gives one ``Lanes``);
+        checkpoints hold the gathered lanes and resume onto any number of
+        shards.
         """
         from repro_torch.core import checkpoint as ckpt
 
         cfg = self.config
-        problem = self._resolve(problem)
+        mesh = cfg.mesh
+        bound = self._resolve(problem)
+        if mesh is None:
+            problem, total_lanes = bound, cfg.lanes
+        else:
+            problem = problems_per_shard(bound, mesh)[0]
+            total_lanes = cfg.lanes * mesh.size
         bootstrap_rounds = cfg.bootstrap_rounds
-        round_fn = make_round(problem, cfg.steps_per_round,
-                              fused_steps=cfg.fused_steps)
-        boot_fn = (make_round(problem, cfg.bootstrap_steps,
-                              fused_steps=cfg.fused_steps)
+        round_fn = make_round(bound, cfg.steps_per_round,
+                              fused_steps=cfg.fused_steps, mesh=mesh,
+                              max_ship=cfg.max_ship)
+        boot_fn = (make_round(bound, cfg.bootstrap_steps,
+                              fused_steps=cfg.fused_steps, mesh=mesh,
+                              max_ship=cfg.max_ship)
                    if bootstrap_rounds else round_fn)
 
         pool: list = []
@@ -262,22 +300,28 @@ class Solver:
                     f"resume_from checkpoint not found: {cfg.resume_from}")
             try:
                 lanes, pool = ckpt.restore(cfg.resume_from, problem,
-                                           cfg.lanes)
+                                           total_lanes)
             except ValueError as e:        # e.g. instance-slot mismatch
                 raise ConfigError(
                     f"resume_from {cfg.resume_from!r} is incompatible with "
                     f"this problem/config: {e}") from e
             bootstrap_rounds = max(bootstrap_rounds, 1)  # respread work
         else:
-            lanes = init_lanes(problem, cfg.lanes)
+            lanes = init_lanes(problem, total_lanes)
+        if mesh is not None:
+            lanes = _shard_lanes(lanes, mesh)
 
         collector = None
         if cfg.metrics or cfg.trace_path is not None:
             from repro_torch import obs
+            # As the reference's, the solve's collector counts no devices.
             collector = obs.RoundCollector(
-                mode="solve", lanes=cfg.lanes, slots=problem.num_instances,
+                mode="solve", lanes=total_lanes,
+                slots=problem.num_instances,
                 steps_per_round=cfg.steps_per_round,
-                fused_steps=cfg.fused_steps, backend=lanes.idx.device.type,
+                fused_steps=cfg.fused_steps,
+                backend=(lanes.idx.device.type if mesh is None
+                         else mesh.device_type),
                 trace=(obs.TraceWriter(cfg.trace_path)
                        if cfg.trace_path else None))
             collector.start(lanes)      # after restore: deltas = this run
@@ -286,7 +330,10 @@ class Solver:
         def feed_pool(lanes):
             nonlocal pool
             if pool:
-                lanes, pool = ckpt.install_pending(problem, lanes, pool)
+                lanes, pool = ckpt.install_pending(
+                    problem, _gather_lanes(lanes), pool)
+                if mesh is not None:
+                    lanes = _shard_lanes(lanes, mesh)
             return lanes
 
         def run_round(fn, lanes):
@@ -322,7 +369,7 @@ class Solver:
                      lanes=lanes, metrics=snap())
             if (cfg.checkpoint_every and cfg.checkpoint_path
                     and rounds % cfg.checkpoint_every == 0):
-                ckpt.save(cfg.checkpoint_path, lanes)
+                ckpt.save(cfg.checkpoint_path, _gather_lanes(lanes))
                 emit(self.on_event, "checkpoint", round=rounds,
                      path=cfg.checkpoint_path)
             done = open_now == 0 and not pool
@@ -350,8 +397,10 @@ class Solver:
 
     def serve(self, *, max_n: int, slots: int):
         """The multi-tenant :class:`repro_torch.service.SolverService`
-        under this config (lanes, steps_per_round, device, scheduler) and
-        event stream, on one device.
+        under this config (lanes, steps_per_round, device, scheduler, mesh,
+        max_ship, autoscale) and event stream.  With ``mesh`` the lane
+        pool is sharded (``lanes`` per shard), the stacked tables are
+        bound once per distinct device and rounds steal across shards.
 
         Its ``submit()`` returns a Ticket; any registered *servable*
         family can be submitted, validated at ``submit()`` time

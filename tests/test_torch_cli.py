@@ -155,14 +155,31 @@ def test_serve_cli_prints_the_reference_lines(argv, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--autoscale", "4"]])
-def test_serve_cli_refuses_what_is_not_ported(flag, monkeypatch, capsys):
-    monkeypatch.setattr(sys, "argv", ["serve_solver", "--device", "cpu"]
-                        + flag)
-    with pytest.raises(SystemExit) as e:
-        serve_solver.main()
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and "item 9" in err
+def test_serve_cli_refuses_what_is_not_ported(flag, tmp_path, monkeypatch,
+                                              capsys):
+    """The mesh flags, once refused, now run: ``--devices 2`` shards the
+    pool over two CPU shards and ``--autoscale 4`` grows it while two
+    requests queue (the trace holds the ``resize``); each request gets the
+    result it gets on one device."""
+    argv = ["--device", "cpu", "--lanes", "8", "--slots", "2",
+            "--trace", str(tmp_path / "t.jsonl")]
+
+    def results(out):
+        return [l.split(" rounds=")[0] for l in service_lines(out)[0]]
+
+    want = results(run_main(serve_solver, argv + ["--devices", "1"],
+                            monkeypatch, capsys))
+    assert [r["t"] for r in records(tmp_path / "t.jsonl")].count(
+        "resize") == 0
+    out = run_main(serve_solver, argv + flag, monkeypatch, capsys)
+    assert results(out) == want and len(want) == 4
+    resizes = [r for r in records(tmp_path / "t.jsonl")
+               if r["t"] == "resize"]
+    if flag[0] == "--devices":
+        assert "over 16 lanes (2 device(s) x 8)" in out and not resizes
+    else:
+        assert "over 8 lanes (1 device(s) x 8)" in out
+        assert [(r["devices"], r["lanes"]) for r in resizes][0] == (2, 16)
 
 
 @pytest.mark.parametrize("flag", ["--trace", "--metrics"])

@@ -208,6 +208,41 @@ def test_stacked_kernel_equals_plain_version(k, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["narrow", "wide"])
+@pytest.mark.parametrize("w", [1, 4, 10, 32])
+def test_count_kernels_equal_plain_version_on_either_route(route, w):
+    """Rows of up to 32 words take both routes (``measured_choice`` may
+    cache either): each must give the plain version's bits, with lanes
+    that see nothing valid, all-tied counts, and (stacked) parked lanes."""
+    need_card()
+    rng = np.random.RandomState(w * 2 + (route == "wide"))
+    for n in sorted({max(1, 32 * w - 5), 32 * w}):
+        for lanes in (1, 17, 1024):
+            table = random_words(rng, (n, w)) & full_mask(n)
+            mask = random_words(rng, (lanes, w))
+            valid = mask & random_words(rng, (lanes, w))
+            valid[::3] = 0
+            valid[1::3] = mask[1::3]
+            for m in (mask, np.zeros_like(mask)):
+                t, mk, v = (words(a, "cuda") for a in (table, m, valid))
+                before = bitset_ops.LAUNCHES["count_stats"]
+                got = bitset_ops.count_stats(t, mk, v, route=route)
+                torch.cuda.synchronize()
+                assert bitset_ops.LAUNCHES["count_stats"] == before + 1
+                assert torch.equal(got, ref.count_stats_ref(t, mk, v))
+            k = 4
+            tables = random_words(rng, (k, n, w))
+            inst = rng.randint(-1, k, size=lanes).astype(np.int32)
+            t, m, v = (words(a, "cuda") for a in (tables, mask, valid))
+            i = torch.from_numpy(inst).cuda()
+            before = bitset_ops.LAUNCHES["stacked_count_stats"]
+            got = bitset_ops.stacked_count_stats(t, i, m, v, route=route)
+            torch.cuda.synchronize()
+            assert bitset_ops.LAUNCHES["stacked_count_stats"] == before + 1
+            assert torch.equal(got, ref.stacked_count_stats_ref(t, i, m, v))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("traced", [False, True])
 def test_service_on_the_card_equals_the_cpu(traced, tmp_path):
     """The card's service drain equals the CPU's; traced, both traces are
@@ -408,3 +443,58 @@ def test_ssd_scan_kernel_refuses_a_chunk_that_does_not_fit():
     y_want, st_want = ref.ssd_scan_ref(*args, chunk=32)
     _assert_close(y, y_want, 1e-4, 1e-4)
     _assert_close(state, st_want, 1e-4, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,spec,lanes", [("vc", "gnp:40:20:3", 8),
+                                               ("ds", "gnp:30:15:2", 4)])
+def test_sharded_solve_on_the_card_equals_the_cpu(family, spec, lanes):
+    """Four shards on cuda:0 against four CPU shards: the same
+    ``SolveStats``, gathered lanes and payload, with tasks crossing
+    shards."""
+    need_card()
+    from repro_torch.core.distributed import Mesh
+    handle = registry.problem(family, spec)
+    cfg = dict(lanes=lanes, steps_per_round=16, bootstrap_rounds=2)
+    bitset_ops.reset_launches()
+    gpu = Solver(SolverConfig(device="cuda", mesh=Mesh(["cuda:0"] * 4),
+                              **cfg)).solve(handle)
+    assert bitset_ops.LAUNCHES["count_stats"] > 0
+    cpu = Solver(SolverConfig(device="cpu", mesh=Mesh(["cpu"] * 4),
+                              **cfg)).solve(handle)
+    assert gpu.stats == cpu.stats and gpu.stats.t_c > 0
+    assert_lanes_equal(gpu.lanes.gather(), cpu.lanes.gather())
+    assert torch.equal(gpu.payload.cpu(), cpu.payload)
+
+
+@pytest.mark.gpu
+def test_sharded_service_on_the_card_equals_the_cpu():
+    """The test-sized mix on 2 shards of cuda:0, resized to 4 mid-drain,
+    against the same schedule on CPU shards: the same results, rounds and
+    lanes."""
+    need_card()
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.problems.graphs import parse_graph_instance
+    mix = [("vc", "gnp:20:30:5"), ("ds", "gnp:16:30:7"), ("vc", "reg:18:3:2"),
+           ("ds", "gnp:18:25:4"), ("vc", "gnp:16:35:9")]
+    runs = {}
+    for device, dev in (("cuda", "cuda:0"), ("cpu", "cpu")):
+        svc = Solver(SolverConfig(lanes=8, steps_per_round=8, device=device,
+                                  mesh=Mesh([dev] * 2))).serve(max_n=20,
+                                                               slots=3)
+        for rid, (family, spec) in enumerate(mix):
+            svc.submit(SolveRequest(rid=rid, graph=parse_graph_instance(spec),
+                                    family=family))
+        bitset_ops.reset_launches()
+        while svc._has_work():
+            if svc.rounds == 3:
+                svc.resize(mesh=Mesh([dev] * 4), num_lanes=4)
+            svc.step_round()
+        runs[device] = svc
+        if device == "cuda":
+            assert bitset_ops.LAUNCHES["stacked_count_stats"] > 0
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu.rounds == cpu.rounds and gpu.n_devices == 4
+    assert {r: v.optimum for r, v in gpu.results.items()} == {
+        r: v.optimum for r, v in cpu.results.items()}
+    assert_lanes_equal(gpu.lanes.gather(), cpu.lanes.gather())

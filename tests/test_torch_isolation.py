@@ -36,7 +36,8 @@ def test_port_sources_import_no_jax_or_reference():
                 "service/scheduler.py", "service/ticket.py",
                 "launch/serve_solver.py", "obs/__init__.py",
                 "obs/registry.py", "obs/trace.py", "obs/collect.py",
-                "problems/subset_sum.py"):
+                "problems/subset_sum.py", "core/distributed.py",
+                "kernels/autotune.py"):
         assert PORT / new in files, new
     bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
            for p in files for line, root in _imported_roots(p)
@@ -53,6 +54,8 @@ def test_port_sources_import_no_jax_or_reference():
     "repro_torch.launch.serve_solver",
     "repro_torch.kernels.ops",
     "repro_torch.obs",
+    "repro_torch.core.distributed",
+    "repro_torch.kernels.autotune",
 ])
 def test_port_imports_with_jax_blocked(module):
     """A fresh interpreter with ``jax`` and ``repro`` made unimportable

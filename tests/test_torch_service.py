@@ -37,8 +37,9 @@ from repro.solver import SolverConfig as JConfig
 from repro_torch import convert
 from repro_torch.problems import graphs as tgraphs
 from repro_torch.problems.graphs import parse_graph_instance
+from repro_torch.core.distributed import make_mesh
 from repro_torch.service import (FAMILY_DS, FAMILY_VC, AdmissionError,
-                                 SolveRequest, StackedSpec)
+                                 AutoscalePolicy, SolveRequest, StackedSpec)
 from repro_torch.service.batch_problem import pack_instance
 from repro_torch.solver import ConfigError, Solver, SolverConfig
 from test_torch_engine import assert_lanes_equal, numpy_tree
@@ -274,10 +275,20 @@ def test_submit_rejects_what_the_reference_rejects(tmp_path):
     with pytest.raises(ConfigError):
         Solver(SolverConfig(device="cpu", scheduler="lifo")).serve(
             max_n=8, slots=1)
-    for unported in (dict(mesh=object()), dict(autoscale=object()),
-                     dict(max_ship=4)):
-        with pytest.raises(ConfigError, match="not ported"):
-            SolverConfig(device="cpu", **unported)
+    # The mesh fields, once refused, are taken; max_ship is validated as
+    # the reference validates it.
+    mesh_svc = Solver(SolverConfig(
+        device="cpu", mesh=make_mesh(2, "cpu"), max_ship=4,
+        autoscale=AutoscalePolicy(max_devices=4))).serve(max_n=8, slots=1)
+    assert (mesh_svc.n_devices, mesh_svc.num_lanes, mesh_svc.max_ship) == (
+        2, 64, 4)
+    with pytest.raises(ConfigError, match="max_ship"):
+        SolverConfig(device="cpu", max_ship=0)
+    with pytest.raises(Exception) as j_err:
+        JConfig(max_ship=0)
+    assert type(j_err.value).__name__ == "ConfigError"
+    with pytest.raises(ConfigError, match="mesh"):
+        SolverConfig(device="cpu", mesh=object())
     # Telemetry is ported: the service takes it, and an empty path is
     # refused as the reference refuses it.
     svc = Solver(SolverConfig(device="cpu", trace_path=str(
