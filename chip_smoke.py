@@ -115,6 +115,15 @@ Phases (any failure raises and exits non-zero):
      both routes of both count kernels bitwise equal to the plain
      versions from 1 to 32 words a row; ``measured_choice`` timing both
      routes at cell60's root shape and the service's;
+ 25. the host-sync audit: ``python -m repro_torch.analysis`` must report
+     no error; the round functions of cell60 (4096 lanes, from phase 4's
+     lanes), the service (1024 lanes, 4 slots, phase 7's mix), the mesh
+     (4 x 1024 on ``cuda:0``, from phase 20's lanes) and subset sum run
+     under ``torch.cuda.set_sync_debug_mode("error")`` (a sync inside
+     raises; a planted one must), their lanes bitwise those of the same
+     rounds unaudited; whole rounds of ``Solver.solve`` counted under
+     ``"warn"`` must show ``SYNCS_PER_ROUND`` (1 bare, 2 traced, 1 on
+     the mesh);
      then the ``kernels`` line for all six kernels, and the seconds each
      phase took.  The CPU's side of phases 19, 20 and 22 runs in three
      processes of its own (``--cpu-twin``) while the card runs 19-24.
@@ -131,11 +140,13 @@ import contextlib
 import ctypes
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -252,6 +263,23 @@ TWIN_PARTS = ("drain", "cell60", "service")
 TWIN_THREADS = 2
 TWIN_CELL60_BUDGET_S = 30
 TWIN_WAIT_S = 600
+#: Phase 25, the host-sync audit: whole rounds of ``Solver.solve`` of
+#: ``SYNC_SOLVE`` (``DRAIN_LANES`` lanes; on the mesh ``MESH_SHARDS`` x
+#: ``MESH_LANES``), ``SYNC_ROUNDS`` rounds and one fewer, counted under
+#: ``set_sync_debug_mode("warn")``: the syncs of a round are the
+#: difference.  ``SYNCS_PER_ROUND`` is what each path must show, and the
+#: line that makes each sync: ``int(open_work.sum())`` of
+#: ``Solver.solve``'s ``run_round`` (``src/repro_torch/solver.py``) and,
+#: when traced, the collector's one ``flat.cpu()`` (``obs/collect.py``,
+#: ``_read``).
+SYNC_SOLVE = DRAIN[0][:2]
+SYNC_ROUNDS = 2
+SYNCS_PER_ROUND = {"one device, bare": 1, "one device, traced": 2,
+                   "mesh, bare": 1}
+#: The round functions run under ``set_sync_debug_mode("error")`` for
+#: ``AUDIT_ROUNDS`` rounds: cell60's (from phase 4's lanes), the service's
+#: and subset sum's; the mesh's (from phase 20's lanes) for one.
+AUDIT_ROUNDS = 2
 #: The kernel library's phases.  The bitset pair at cell60's shape and a
 #: sweep; attention at the full width of two of the repo's model
 #: configurations (src/repro/configs: qwen2_7b, gemma2_27b) and a sweep
@@ -1260,6 +1288,7 @@ def launch_floor(rows):
     for ``rows``, timed as the kernels are (not counted: it is no kernel
     of the library)."""
     from repro_torch.kernels import _build
+    # torch-lint: disable=kernel-contract -- the floor is timed, not counted
     fn = _build.load("popcount_reduce").popcount_reduce_floor_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -2228,10 +2257,15 @@ def phase_mesh_cell60(report):
     from repro_torch.kernels import bitset_ops
     mesh = shard_mesh(DEV_MESH, MESH_SHARDS)
     bitset_ops.reset_launches()
-    digests = []
-    ms, _ = sync_ms(lambda: digests.extend(
-        lanes_digest(lanes) for _, lanes in mesh_rounds(
-            "vc", "cell60", mesh, MESH_CELL60_LANES, 1, MESH_CELL60_ROUNDS)))
+    digests, last = [], []
+
+    def rounds():
+        for problems, lanes in mesh_rounds("vc", "cell60", mesh,
+                                           MESH_CELL60_LANES, 1,
+                                           MESH_CELL60_ROUNDS):
+            digests.append(lanes_digest(lanes))
+            last[:] = [problems, lanes]
+    ms, _ = sync_ms(rounds)
     launches = bitset_ops.LAUNCHES["count_stats"]
     check(len(digests) == MESH_CELL60_ROUNDS and launches > 0,
           f"mesh cell60: {len(digests)} rounds, {launches} launches")
@@ -2242,6 +2276,7 @@ def phase_mesh_cell60(report):
     report["launches"]["count_stats"] += launches
     report["mesh_cell60"] = dict(wall_ms=ms, launches=launches,
                                  digests=digests)
+    return (mesh, *last)
 
 
 def phase_mesh_elastic(report, ckpt_path):
@@ -2424,6 +2459,181 @@ def check_twin(report, twin):
           f"{seconds} s beside the card's phases", flush=True)
     report["cpu_twin"] = dict(seconds=seconds, cell60_rounds=len(cpu60),
                               rc={p: twin[p].get("rc") for p in TWIN_PARTS})
+
+
+# -- phase 25: the host-sync audit ------------------------------------------
+
+def static_checks():
+    """``python -m repro_torch.analysis`` over the checkout (in a process
+    of its own, as a user runs it): fails on any error; returns its JSON
+    report (files, the round loop's scanned functions)."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / "torch_lint.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json", str(path)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"python -m repro_torch.analysis exited "
+                                f"{proc.returncode}:\n{proc.stdout}"
+                                f"{proc.stderr}")
+    return json.loads(path.read_text())
+
+
+@contextlib.contextmanager
+def sync_debug(mode):
+    """``torch.cuda.set_sync_debug_mode(mode)`` inside the block: "error"
+    raises at any synchronizing CUDA operation, "warn" warns at each."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def audited_rounds(what, round_fn, lanes, rounds):
+    """``rounds`` applications of ``round_fn`` from ``lanes`` with every
+    sync an error, then the same rounds with debug mode off: the lanes
+    must be bitwise equal (SHA-256 of every array).  Returns the digest."""
+    def go(mode):
+        cur = lanes
+        with sync_debug(mode):
+            for _ in range(rounds):
+                cur, _ = round_fn(cur)
+        return lanes_digest(cur)
+
+    try:
+        audited = go("error")
+    except RuntimeError as e:
+        raise RuntimeError(f"chip_smoke: {what}: a host sync inside the "
+                           f"round function: {e}") from e
+    plain = go(0)
+    check(audited == plain, f"{what}: lanes after {rounds} audited rounds "
+                            f"differ from the same rounds unaudited")
+    return audited
+
+
+def counted_syncs(fn):
+    """(synchronizing CUDA operations inside ``fn()``, its result)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")     # every repeat, not the first
+        with sync_debug("warn"):
+            out = fn()
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught), out
+
+
+def sync_solve(mesh, rounds, traced=False):
+    """A ``Solver.solve`` of ``SYNC_SOLVE`` for ``rounds`` rounds with no
+    listener (bare, or traced and metered), ready to run."""
+    from repro_torch import registry
+    from repro_torch.solver import Solver, SolverConfig
+    tag = "mesh" if mesh is not None else "one_device"
+    trace = (str(TRACES / f"sync_audit_{tag}_{rounds}.jsonl")
+             if traced else None)
+    config = SolverConfig(
+        lanes=MESH_LANES if mesh is not None else DRAIN_LANES,
+        steps_per_round=64, max_rounds=rounds, device=DEV, mesh=mesh,
+        trace_path=trace, metrics=traced)
+    return lambda: Solver(config).solve(registry.problem(*SYNC_SOLVE))
+
+
+def phase_sync_audit(report, cell60_lanes, mesh60):
+    """The static claim (no host sync inside the round loop) held against
+    the card: the lint first, then the round functions of the cell60
+    solve, the service, the 4-shard mesh and subset sum with every sync
+    an error, then whole host rounds counted."""
+    from repro_torch import registry
+    from repro_torch.core.distributed import make_round
+    from repro_torch.core.engine import init_lanes
+    from repro_torch.problems.graphs import cell60_graph
+    from repro_torch.problems.vertex_cover import make_vertex_cover
+    t0 = time.perf_counter()
+    lint = static_checks()
+    lint_s = time.perf_counter() - t0
+    print(f"phase 25: python -m repro_torch.analysis: {lint['files']} "
+          f"files, 0 errors, {len(lint['scanned'])} functions in the round "
+          f"loop's scope ({lint_s:.1f} s)", flush=True)
+
+    audited = {}
+    cell60 = make_vertex_cover(cell60_graph(), device=DEV)
+    audited["cell60"] = (CELL60_LANES, AUDIT_ROUNDS, audited_rounds(
+        "cell60", make_round(cell60, 64), cell60_lanes, AUDIT_ROUNDS))
+
+    svc = new_service(DEV, SERVICE["lanes"], SERVICE["steps"],
+                      SERVICE["max_n"], SERVICE["slots"])
+    submit_all(svc, [(f, s, {}) for f, s, _ in SERVICE_MIX])
+    svc.step_round()                        # admissions: host surgery
+    audited["service"] = (SERVICE["lanes"], AUDIT_ROUNDS, audited_rounds(
+        "service", svc._round, svc.lanes, AUDIT_ROUNDS))
+
+    mesh, problems, lanes = mesh60
+    audited["mesh cell60"] = (MESH_SHARDS * MESH_CELL60_LANES, 1,
+                              audited_rounds("mesh cell60", make_round(
+                                  problems, 64, mesh=mesh), lanes, 1))
+
+    ss = registry.problem("ss", SUBSET_SUM).build(device=DEV)
+    ss_round = make_round(ss, 64)
+    ss_lanes, _ = ss_round(init_lanes(ss, DRAIN_LANES))
+    audited["subset sum"] = (DRAIN_LANES, AUDIT_ROUNDS, audited_rounds(
+        "subset sum", ss_round, ss_lanes, AUDIT_ROUNDS))
+
+    def planted(lanes):                     # the check must be able to fail
+        lanes, open_work = ss_round(lanes)
+        int(open_work.sum())
+        return lanes, open_work
+    try:
+        audited_rounds("planted", planted, ss_lanes, 1)
+        caught = False
+    except RuntimeError:
+        caught = True
+    check(caught, "a sync planted in a round function went unnoticed")
+    for what, (width, rounds, _) in audited.items():
+        print(f"phase 25: {what} round function at {width} lanes, "
+              f"{rounds} round(s) with set_sync_debug_mode(\"error\"): no "
+              f"sync; lanes bitwise those of the same rounds unaudited",
+              flush=True)
+    # The host-copy hazard of the lint (``torch.tensor`` in a round, as
+    # subset sum's root() once made three a round) on this card.
+    copies, _ = counted_syncs(
+        lambda: torch.tensor(0, dtype=torch.int32, device=DEV))
+    print(f"phase 25: an int() planted in subset sum's round raises there; "
+          f"one torch.tensor(0, device=...) is {copies} sync(s)", flush=True)
+
+    # A round's syncs: those of a SYNC_ROUNDS-round solve less those of a
+    # one-round-shorter one (their set-up and wind-down are the same).
+    counts = {}
+    for where, mesh_of, kinds in (
+            ("one device", None, ("bare", "traced")),
+            ("mesh", shard_mesh(DEV_MESH, MESH_SHARDS), ("bare",))):
+        plain = lanes_digest(sync_solve(mesh_of, SYNC_ROUNDS)().lanes)
+        for kind in kinds:
+            traced = kind == "traced"
+            few, _ = counted_syncs(sync_solve(mesh_of, SYNC_ROUNDS - 1,
+                                              traced))
+            many, res = counted_syncs(sync_solve(mesh_of, SYNC_ROUNDS,
+                                                 traced))
+            what = f"{where}, {kind}"
+            counts[what] = many - few
+            check(res.stats.rounds == SYNC_ROUNDS
+                  and lanes_digest(res.lanes) == plain,
+                  f"{what}: {res.stats.rounds} rounds, or lanes that differ "
+                  f"from the same solve's without debug mode")
+            check(counts[what] == SYNCS_PER_ROUND[what],
+                  f"{what}: {counts[what]} syncs a round, documented "
+                  f"{SYNCS_PER_ROUND[what]}")
+    seconds = time.perf_counter() - t0
+    print(f"phase 25: whole rounds of Solver.solve ({' '.join(SYNC_SOLVE)}, "
+          f"{DRAIN_LANES} lanes; mesh {MESH_SHARDS} x {MESH_LANES}): host "
+          f"syncs a round {counts} (documented {SYNCS_PER_ROUND}); lanes "
+          f"bitwise those of the same solves without debug mode; "
+          f"{seconds:.1f} s on {report['card']}", flush=True)
+    report["sync_audit"] = dict(
+        lint_files=lint["files"], lint_scanned=len(lint["scanned"]),
+        lint_s=lint_s, audited={k: dict(lanes=w, rounds=r, digest=d)
+                                for k, (w, r, d) in audited.items()},
+        syncs_per_round=counts, host_copy_syncs=copies, seconds=seconds)
 
 
 # -- driver -----------------------------------------------------------------
@@ -2643,7 +2853,7 @@ def main(argv=None) -> int:
     twin = start_twin()
     try:
         ckpt_path = run(19, phase_mesh_drain, report)
-        run(20, phase_mesh_cell60, report)
+        mesh60 = run(20, phase_mesh_cell60, report)
         run(21, phase_mesh_elastic, report, ckpt_path)
         run(22, phase_mesh_service, report)
         run(23, phase_two_cards, report)
@@ -2651,6 +2861,7 @@ def main(argv=None) -> int:
     finally:
         twin_result = run("twin", finish_twin, twin)
     check_twin(report, twin_result)
+    run(25, phase_sync_audit, report, cell60_lanes, mesh60)
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small, *wide]),
         kernel_entry("stacked_count_stats", report, service,

@@ -103,13 +103,19 @@ def load(name: str) -> ctypes.CDLL:
 def _entry(name: str, argtypes: Sequence) -> Callable:
     """``<name>_launch`` of ``csrc/<name>.cu``, built and bound at first
     use: ``argtypes`` (``c_void_p`` for each device pointer, ``c_int``,
-    ``c_float``), then the stream; it returns the CUDA error code."""
+    ``c_float``), then the stream; it returns the CUDA error code.  A
+    later call with other ``argtypes`` raises ``ValueError``: ctypes
+    would pass its arguments through the first binding."""
+    want = (*argtypes, ctypes.c_void_p)
     fn = _ENTRY.get(name)
     if fn is None:
         fn = getattr(load(name), f"{name}_launch")
-        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.argtypes = want
         fn.restype = ctypes.c_int
         _ENTRY[name] = fn
+    elif tuple(fn.argtypes) != want:
+        raise ValueError(f"{name}_launch is bound to argtypes "
+                         f"{list(fn.argtypes)}, called with {list(want)}")
     return fn
 
 

@@ -85,11 +85,13 @@ def make_subset_sum(values, target: int,
         [np.cumsum(vals_np[::-1])[::-1], [0]]).astype(np.int32)).to(dev)
     tgt = int(target)
 
-    def scalar(v: int) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.int32, device=dev)
+    def zero() -> torch.Tensor:
+        # Made on the device: the replay takes a root every round, and a
+        # tensor built from a host value would copy (and sync) each time.
+        return torch.zeros((), dtype=torch.int32, device=dev)
 
     def root() -> SSState:
-        return SSState(pos=scalar(0), total=scalar(0), count=scalar(0),
+        return SSState(pos=zero(), total=zero(), count=zero(),
                        mask=torch.zeros(n, dtype=torch.int32, device=dev))
 
     def evaluate_batch(states: SSState, best: torch.Tensor) -> NodeEval:

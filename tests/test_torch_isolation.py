@@ -37,7 +37,11 @@ def test_port_sources_import_no_jax_or_reference():
                 "launch/serve_solver.py", "obs/__init__.py",
                 "obs/registry.py", "obs/trace.py", "obs/collect.py",
                 "problems/subset_sum.py", "core/distributed.py",
-                "kernels/autotune.py"):
+                "kernels/autotune.py", "analysis/__init__.py",
+                "analysis/__main__.py", "analysis/core.py",
+                "analysis/trace_safety.py", "analysis/kernel_contract.py",
+                "analysis/telemetry.py", "analysis/api_hygiene.py",
+                "analysis/api_surface.py", "obs/report.py"):
         assert PORT / new in files, new
     bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
            for p in files for line, root in _imported_roots(p)
@@ -56,6 +60,9 @@ def test_port_sources_import_no_jax_or_reference():
     "repro_torch.obs",
     "repro_torch.core.distributed",
     "repro_torch.kernels.autotune",
+    "repro_torch.analysis",
+    "repro_torch.analysis.api_surface",
+    "repro_torch.obs.report",
 ])
 def test_port_imports_with_jax_blocked(module):
     """A fresh interpreter with ``jax`` and ``repro`` made unimportable
