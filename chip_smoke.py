@@ -124,8 +124,23 @@ Phases (any failure raises and exits non-zero):
      rounds unaudited; whole rounds of ``Solver.solve`` counted under
      ``"warn"`` must show ``SYNCS_PER_ROUND`` (1 bare, 2 traced, 1 on
      the mesh);
-     then the ``kernels`` line for all six kernels, and the seconds each
-     phase took.  The CPU's side of phases 19, 20 and 22 runs in three
+ 26. LM serving: zamba2-2.7b at full width and depth (bf16, 2.7 B
+     parameters from the port's seeded init on the card): a batched
+     prefill of 4 x 1024 tokens with each of its 9 ``flash_attention``
+     and 54 ``ssd_scan`` launches held against the plain version on its
+     live inputs, then timed (prefill tokens/s, the profiled device
+     share); ``BatchedServer`` (4 slots) serving the 4 prompts for 32
+     tokens each: 9 and 54 launches per admission's prefill, none per
+     decode step, the first decode step under
+     ``set_sync_debug_mode("error")``, decode tokens/s per tick, peak
+     memory; both kernels timed on the first site's live inputs (SDPA
+     beside the attention); one hybrid group at full width (B=2, S=256,
+     8 teacher-forced decode steps) and qwen2-7b at full width cut to 2
+     layers (B=1, S=256, 4 steps) on the card against the CPU within
+     0.08;
+     then the ``kernels`` line for all six kernels (``launches`` of the
+     LM kernels: phase 26's serving run), and the seconds each phase
+     took.  The CPU's side of phases 19, 20 and 22 runs in three
      processes of its own (``--cpu-twin``) while the card runs 19-24.
 
 The last line of standard output is
@@ -325,6 +340,23 @@ SSD_SWEEP = (("f32", 1, 256, 4, 64, 1, 128, 64, "f32", -5.0),
              ("bf16 G=2 ragged", 2, 1000, 8, 64, 2, 128, 128, "bf16",
               -5.0))
 SSD_DECAY_RANGE = (0.05, 0.95)
+#: Phase 26, LM serving: ``LM_ARCH`` at full width and depth in bf16,
+#: weights from the port's init (a generator seeded ``LM_SEED`` on the
+#: card).  A batched prefill of ``LM_REQUESTS`` prompts of ``LM_PROMPT``
+#: tokens (the launcher's path; every kernel launch held against its
+#: plain version, then ``LM_PREFILL_REPEATS`` timed), then
+#: ``BatchedServer`` with ``LM_SLOTS`` slots serving the same prompts for
+#: ``LM_NEW`` tokens each.  ``LM_TWIN``: (B, S, decode steps) of one hybrid
+#: group at full width on the card and on the CPU.  ``LM_DENSE``: (arch,
+#: layers, B, S, decode steps) of the dense path the same way.  Both held
+#: within ``LM_TOL`` (the reference's serving check, rtol = atol).
+LM_ARCH = "zamba2-2.7b"
+LM_SEED = 26
+LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_NEW = 4, 4, 1024, 32
+LM_PREFILL_REPEATS = 3
+LM_TWIN = (2, 256, 8)
+LM_DENSE = ("qwen2-7b", 2, 1, 256, 4)
+LM_TOL = 0.08
 #: q and k are drawn at this scale, so the scores scale * q.k spread by
 #: about 6 (held at MIN_SCORE_STD or more): the softmax is peaked, a
 #: window changes which key wins, and the softcap bends the largest
@@ -606,28 +638,53 @@ def is_kernel(name, key):
                      key) is not None
 
 
+#: Kernel name patterns of ``device_busy``'s groups (first match wins).
+KERNEL_GROUPS = (("flash_attention", r"flash_attention"),
+                 ("ssd_scan", r"ssd_scan"),
+                 ("GEMM", r"gemm|nvjet|xmma|cutlass|cublas"),
+                 ("reduction", r"reduce|norm|softmax"),
+                 ("copy/cat/fill", r"copy|cat|fill|memcpy|memset|index|pad"),
+                 ("elementwise", r"elementwise|vectorized|unrolled"))
+
+
 def device_busy(fn):
     """Wall time of ``fn()`` between two synchronizes, and the device time
-    the profiler records inside it (kernels and copies on the card), with
-    each of the port's kernels' share."""
+    the profiler records inside it: the events that ran on the card
+    (kernels, copies), not the host operations that launched them, which
+    carry the same time again (``all_events_ms`` sums both).  With each
+    of the port's kernels' share,
+    the time of each group of ``KERNEL_GROUPS`` and the 5 longest
+    kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms, out = sync_ms(fn)
-    device_us, ops = 0.0, 0
+    device_us, all_us, ops = 0.0, 0.0, 0
     kernel_us = dict.fromkeys(KERNELS, 0.0)
+    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    by_name = {}
     for evt in prof.key_averages():
         us = evt.self_device_time_total
-        if us > 0:
-            device_us += us
-            ops += evt.count
-            for name in KERNELS:
-                if is_kernel(name, evt.key):
-                    kernel_us[name] += us
+        all_us += us
+        if us <= 0 or evt.device_type != DeviceType.CUDA:
+            continue
+        device_us += us
+        ops += evt.count
+        by_name[evt.key] = by_name.get(evt.key, 0.0) + us
+        for name in KERNELS:
+            if is_kernel(name, evt.key):
+                kernel_us[name] += us
+        groups[next((g for g, pat in KERNEL_GROUPS
+                     if re.search(pat, evt.key, re.IGNORECASE)),
+                    "other")] += us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_ms=wall_ms, device_ms=device_us / 1e3,
                 busy_share=device_us / 1e3 / wall_ms, device_ops=ops,
+                all_events_ms=all_us / 1e3,
                 kernel_ms={k: v / 1e3 for k, v in kernel_us.items()},
-                out=out)
+                groups_ms={g: us / 1e3 for g, us in groups.items()},
+                top_ms=[(k[:80], us / 1e3) for k, us in top], out=out)
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -1386,11 +1443,74 @@ def attention_parity(parity, case, q, k, v, out):
     return err, rel, planted
 
 
+def time_attention(report, name, q, k, v, out, window, softcap, qs,
+                   **extra):
+    """``ops.flash_attention`` on (q, k, v) timed over ``ATTN_ITERS``
+    launches beside its plain version (once) and, without a window,
+    softcap or query scale, SDPA (held against the kernel's ``out``);
+    with the bound from the inputs: the
+    tensor cores' (or CUDA cores') rate for its products, the SFU's for
+    its exps (and tanh), or the bytes."""
+    from repro_torch.kernels import ops, ref
+    b, s, h, hd = q.shape
+    g = k.shape[2]
+    dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    pairs = h * b * attention_pairs(s, window)
+    flops = 4 * hd * pairs
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    bound_ms, bound_by = rate_bound(flops, PEAK_FLOPS[DTYPES[dt]], nbytes)
+    # An exp per pair on the SFU, and a tanh with a softcap.
+    sfu_ops = pairs * (2 if softcap else 1)
+    sfu_ms = sfu_ops / (SFU_PER_CLOCK_PER_SM * report["sms"]
+                        * report["clock_max_sm_hz"]) * 1e3
+    if sfu_ms > bound_ms:
+        bound_ms, bound_by = sfu_ms, "operations"
+    library = None
+    if window is None and softcap == 0.0 and qs is None:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err, lib_rel, _ = close(library().transpose(1, 2), out, TOL[dt],
+                                    REL_TOL[dt])
+    t = measure(
+        "flash_attention",
+        lambda: ops.flash_attention(q, k, v, window=window, softcap=softcap,
+                                    query_scale=qs),
+        lambda: ref.flash_attention_ref(
+            q, k, v, window=window, softcap=softcap, query_scale=qs,
+            block_q=128, block_k=128),
+        ATTN_ITERS, 1, bound_ms, bound_by, library=library,
+        config=name, B=b, S=s, H=h, G=g, hd=hd, window=window,
+        softcap=softcap, query_scale=qs, dtype=dt, flops=flops,
+        sfu_ops=sfu_ops, sfu_bound_ms=sfu_ms, bytes=nbytes,
+        tolerance=TOL[dt], rel_tolerance=REL_TOL[dt], **extra)
+    if library is not None:
+        t["library"] = "torch.nn.functional.scaled_dot_product_attention"
+        t["library_vs_kernel_max_abs_err"] = lib_err
+        t["library_vs_kernel_rel_err"] = lib_rel
+    return t
+
+
+def timing_text(t):
+    """The timing of ``time_attention`` / ``time_ssd`` as printed."""
+    lib = ""
+    if "hd" in t:                       # attention: SDPA beside it
+        lib = (f", SDPA {t['library_ms']:.3f} ms"
+               if t["library_ms"] is not None
+               else ", SDPA: none (window/softcap/query_scale)")
+    work = (f"{t['flops'] / 1e9:.1f} GFLOP, {t['bytes'] / 1e6:.1f} MB")
+    return (f"kernel {t['ms']:.3f} ms ({t['ms_source']}; events "
+            f"{t['ms_events']:.3f} ms), plain {t['plain_ms']:.1f} ms{lib}, "
+            f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}: {work})")
+
+
 def phase_attention(report):
     """``ops.flash_attention`` at qwen2-7b's and gemma2-27b's widths (the
     library's call, counted), held against the plain version, a sweep at
     small S, and the timing."""
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, ops
     parity = report["parity"]["flash_attention"]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(12)
@@ -1409,56 +1529,16 @@ def phase_attention(report):
     for case, (q, k, v), out in zip(ATTN_FULL, inputs, outs):
         name, b, s, h, g, hd, window, softcap, qs, dt = case
         err, rel, planted = attention_parity(parity, case, q, k, v, out)
-        pairs = h * b * attention_pairs(s, window)
-        flops = 4 * hd * pairs
-        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-        bound_ms, bound_by = rate_bound(flops, PEAK_FLOPS[DTYPES[dt]],
-                                        nbytes)
-        # An exp per pair on the SFU, and a tanh with a softcap.
-        sfu_ops = pairs * (2 if softcap else 1)
-        sfu_ms = sfu_ops / (SFU_PER_CLOCK_PER_SM * report["sms"]
-                            * report["clock_max_sm_hz"]) * 1e3
-        if sfu_ms > bound_ms:
-            bound_ms, bound_by = sfu_ms, "operations"
-        library = None
-        if window is None and softcap == 0.0 and qs is None:
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-            def library():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
-            lib_err, lib_rel, _ = close(library().transpose(1, 2), out,
-                                        TOL[dt], REL_TOL[dt])
-        t = measure(
-            "flash_attention",
-            lambda: ops.flash_attention(q, k, v, window=window,
-                                        softcap=softcap, query_scale=qs),
-            lambda: ref.flash_attention_ref(
-                q, k, v, window=window, softcap=softcap, query_scale=qs,
-                block_q=128, block_k=128),
-            ATTN_ITERS, 1, bound_ms, bound_by, library=library,
-            config=name, B=b, S=s, H=h, G=g, hd=hd, window=window,
-            softcap=softcap, query_scale=qs, dtype=dt, flops=flops,
-            sfu_ops=sfu_ops, sfu_bound_ms=sfu_ms,
-            bytes=nbytes, max_abs_err=err, rel_err=rel, tolerance=TOL[dt],
-            rel_tolerance=REL_TOL[dt], planted_rel_err=planted)
-        if library is not None:
-            t["library"] = "torch.nn.functional.scaled_dot_product_attention"
-            t["library_vs_kernel_max_abs_err"] = lib_err
-            t["library_vs_kernel_rel_err"] = lib_rel
+        t = time_attention(report, name, q, k, v, out, window, softcap, qs,
+                           max_abs_err=err, rel_err=rel,
+                           planted_rel_err=planted)
         results.append(t)
-        lib = (f", SDPA {t['library_ms']:.3f} ms" if library is not None
-               else ", SDPA: none (window/softcap/query_scale)")
         caught = "".join(f"; plain with {f} caught (normalised err "
                          f"{e:.3g})" for f, e in planted.items())
         print(f"phase 12: flash_attention {name} (B={b} S={s} H={h} G={g} "
               f"hd={hd} window={window} softcap={softcap} {dt}): max abs "
               f"err {err:.3g} (tol {TOL[dt]}), normalised {rel:.3g} (tol "
-              f"{REL_TOL[dt]}){caught}; kernel {t['ms']:.3f} ms "
-              f"({t['ms_source']}; events {t['ms_events']:.3f} ms), plain "
-              f"{t['plain_ms']:.1f} ms{lib}, bound {t['bound_ms']:.3f} ms "
-              f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} "
-              f"MB)", flush=True)
+              f"{REL_TOL[dt]}){caught}; {timing_text(t)}", flush=True)
     del inputs, outs
 
     for case in ATTN_SWEEP:
@@ -1575,10 +1655,29 @@ def ssd_cost(b, s, h, p, n, chunk, args):
     return flops, nbytes
 
 
+def time_ssd(name, args, chunk, **extra):
+    """``ops.ssd_scan`` on ``args`` (x, dt, a, B, C, d) timed over 10
+    launches, as the sum of its three passes' kernels, beside its plain
+    version (once), with the bound from the inputs."""
+    from repro_torch.kernels import ops, ref
+    x, b_mat = args[0], args[3]
+    b, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    dt = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    flops, nbytes = ssd_cost(b, s, h, p, n, chunk, args)
+    bound_ms, bound_by = rate_bound(flops, PEAK_FLOPS[DTYPES[dt]], nbytes)
+    return measure(
+        "ssd_scan", lambda: ops.ssd_scan(*args, chunk=chunk),
+        lambda: ref.ssd_scan_ref(*args, chunk=chunk), 10, 1, bound_ms,
+        bound_by, config=name, B=b, S=s, H=h, P=p, G=g, N=n, chunk=chunk,
+        dtype=dt, flops=flops, bytes=nbytes, tolerance=SSD_TOL[dt],
+        rel_tolerance=SSD_REL_TOL[dt], state_tolerance=STATE_TOL, **extra)
+
+
 def phase_ssd(report):
     """``ops.ssd_scan`` at mamba2-130m's width (the library's call,
     counted), held against the plain version, a sweep, and the timing."""
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, ops
     parity = report["parity"]["ssd_scan"]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(13)
@@ -1593,28 +1692,18 @@ def phase_ssd(report):
     (y_err, y_rel, st_err), caught = ssd_parity(parity, SSD_FULL, args, y,
                                                 state, planted=True)
     decay = float(chunk_decays(args[1], args[2], chunk).mean())
-    flops, nbytes = ssd_cost(b, s, h, p, n, chunk, args)
-    bound_ms, bound_by = rate_bound(flops, PEAK_FLOPS[DTYPES[dt]], nbytes)
-    t = measure(
-        "ssd_scan", lambda: ops.ssd_scan(*args, chunk=chunk),
-        lambda: ref.ssd_scan_ref(*args, chunk=chunk), 10, 1, bound_ms,
-        bound_by, config=name, B=b, S=s, H=h, P=p, G=g, N=n, chunk=chunk,
-        dtype=dt, flops=flops, bytes=nbytes, y_max_abs_err=y_err,
-        y_rel_err=y_rel, state_max_abs_err=st_err, tolerance=SSD_TOL[dt],
-        rel_tolerance=SSD_REL_TOL[dt], state_tolerance=STATE_TOL,
-        chunk_decay_mean=decay, planted_rel_err=caught)
+    t = time_ssd(name, args, chunk, y_max_abs_err=y_err, y_rel_err=y_rel,
+                 state_max_abs_err=st_err, chunk_decay_mean=decay,
+                 planted_rel_err=caught)
     print(f"phase 13: ssd_scan {name} (B={b} S={s} H={h} P={p} G={g} N={n} "
           f"chunk={chunk} {dt}, a chunk carries on {decay:.3g} of the "
           f"state): y max abs err {y_err:.3g} (tol {SSD_TOL[dt]}), "
           f"normalised {y_rel:.3g} (tol {SSD_REL_TOL[dt]}); state max abs "
           f"err {st_err:.3g} (tol {STATE_TOL}); plain without the carry "
           f"caught (normalised err y {caught['no carry, y']:.3g}, state "
-          f"{caught['no carry, state']:.3g}); kernel {t['ms']:.3f} ms "
-          f"({t['ms_source']}; events {t['ms_events']:.3f} ms), plain "
-          f"{t['plain_ms']:.1f} ms, bound {bound_ms * 1e3:.1f} us "
-          f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
-          f"passes " + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in
-                                 t["kernels_ms"].items())
+          f"{caught['no carry, state']:.3g}); {timing_text(t)}; passes "
+          + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in
+                      t["kernels_ms"].items())
           + f"; {b * h * -(-s // chunk)} blocks a pass on {report['sms']} "
           f"SMs", flush=True)
     del args, y, state
@@ -2636,6 +2725,360 @@ def phase_sync_audit(report, cell60_lanes, mesh60):
         syncs_per_round=counts, host_copy_syncs=copies, seconds=seconds)
 
 
+# -- phase 26: LM serving ---------------------------------------------------
+
+@contextlib.contextmanager
+def kernels_held(report, live):
+    """Inside the block, every call of the model's two kernel wrappers
+    (``kernels.flash_attention.flash_attention``, ``kernels.ssd_scan
+    .ssd_scan``, which ``models.blocks`` calls through their modules) is
+    held against its plain version on the same live inputs, at phase
+    12's and 13's tolerances; ``live`` keeps the first call of each
+    (inputs and outputs) for the timing."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    flash, scan = fa_mod.flash_attention, ssd_mod.ssd_scan
+
+    def held_flash(q, k, v, *, window=None, softcap=0.0, query_scale=None,
+                   block_q=128, block_k=128):
+        out = flash(q, k, v, window=window, softcap=softcap,
+                    query_scale=query_scale)
+        want = ref.flash_attention_ref(q, k, v, window=window,
+                                       softcap=softcap,
+                                       query_scale=query_scale,
+                                       block_q=128, block_k=128)
+        dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        err, rel, ok = close(out, want, TOL[dt], REL_TOL[dt])
+        note_error(report["parity"]["flash_attention"], err, rel)
+        check(ok, f"flash_attention on the model's live inputs "
+                  f"{tuple(q.shape)}: max abs err {err}, normalised {rel}")
+        live.setdefault("flash_attention", (q, k, v, out, window, softcap,
+                                            query_scale))
+        return out
+
+    def held_scan(x, dt, a, b, c, d, chunk=64):
+        y, state = scan(x, dt, a, b, c, d, chunk=chunk)
+        y_want, st_want = ref.ssd_scan_ref(x, dt, a, b, c, d, chunk=chunk)
+        kind = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        y_err, y_rel, y_ok = close(y, y_want, SSD_TOL[kind],
+                                   SSD_REL_TOL[kind])
+        st_err, st_rel, st_ok = close(state, st_want, STATE_TOL, STATE_TOL)
+        parity = report["parity"]["ssd_scan"]
+        note_error(parity, y_err, y_rel)
+        note_error(parity, st_err, st_rel)
+        check(y_ok and st_ok, f"ssd_scan on the model's live inputs "
+                              f"{tuple(x.shape)}: y max abs err {y_err}, "
+                              f"normalised {y_rel}; state {st_err}, "
+                              f"{st_rel}")
+        live.setdefault("ssd_scan", ((x, dt, a, b, c, d), chunk))
+        return y, state
+
+    fa_mod.flash_attention, ssd_mod.ssd_scan = held_flash, held_scan
+    try:
+        yield
+    finally:
+        fa_mod.flash_attention, ssd_mod.ssd_scan = flash, scan
+
+
+def launches_since(before):
+    """The model kernels' launches since the ``before`` snapshot."""
+    from repro_torch.kernels import _build
+    return {k: _build.LAUNCHES[k] - before[k]
+            for k in ("flash_attention", "ssd_scan")}
+
+
+def lm_run(cfg, params, toks, s, n):
+    """Prefill ``toks[:, :s]``, then ``n`` teacher-forced decode steps,
+    on the parameters' device: ({step: logits}, {"prefill" / "decoded":
+    cache}), in f32 on the CPU, and the prefill's launches."""
+    from repro_torch.core.api import tree_map
+    from repro_torch.kernels import _build
+    from repro_torch.models import model
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    dev = params["embed"].device
+    toks = torch.from_numpy(toks).to(dev)
+    before = dict(_build.LAUNCHES)
+    logits, cache = make_prefill_step(cfg, 128, 128)(params, toks[:, :s])
+    launched = launches_since(before)
+    # A copy, always: on the CPU ``.float().cpu()`` of an f32 leaf is the
+    # leaf itself, which the decode steps then write in place.
+    host = lambda tree: tree_map(  # noqa: E731
+        lambda x: x.to("cpu", torch.float32, copy=True), tree)
+    out = {"prefill": logits.float().cpu()}
+    caches = {"prefill": host(cache)}
+    cache = model.pad_cache(cfg, cache, s + n)
+    decode = make_decode_step(cfg)
+    for i in range(n):
+        logits, cache = decode(params, cache, toks[:, s + i:s + i + 1], s + i)
+        out[f"decode {i}"] = logits.float().cpu()
+    caches["decoded"] = host(cache)
+    return out, caches, launched
+
+
+def card_against_cpu(what, cfg, params, toks, s, n):
+    """``lm_run`` on the card and on the CPU (the same parameters, moved):
+    every logits row and the prefill's cache within ``LM_TOL``; the cache
+    after the decode steps measured (max abs and normalised error per
+    leaf), not held.  Returns the errors and the card's prefill
+    launches."""
+    from repro_torch.core.api import tree_leaves, tree_map
+    card, card_cache, launched = lm_run(cfg, params, toks, s, n)
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    cpu, cpu_cache, _ = lm_run(cfg, cpu_params, toks, s, n)
+    errs = {}
+    for step in card:
+        errs[step] = float((card[step] - cpu[step]).abs().max())
+        check(torch.allclose(card[step], cpu[step], rtol=LM_TOL,
+                             atol=LM_TOL),
+              f"{what}: {step} logits, card against CPU: max abs err "
+              f"{errs[step]} (tol {LM_TOL})")
+    for when in card_cache:
+        for site in card_cache[when]:
+            for name in card_cache[when][site]:
+                got = tree_leaves(card_cache[when][site][name])
+                want = tree_leaves(cpu_cache[when][site][name])
+                err = max(float((x - y).abs().max())
+                          for x, y in zip(got, want))
+                rel = max(float((x - y).norm() / y.norm().clamp_min(1e-30))
+                          for x, y in zip(got, want))
+                key = f"{when} {site}.{name}"
+                errs[key] = (err, rel)
+                check(when != "prefill" or all(
+                    torch.allclose(x, y, rtol=LM_TOL, atol=LM_TOL)
+                    for x, y in zip(got, want)),
+                    f"{what}: cache {key}, card against CPU: max abs err "
+                    f"{err}, normalised {rel} (tol {LM_TOL})")
+    return errs, launched
+
+
+def errors_text(errs):
+    return ", ".join(f"{k} {v:.3g}" if not isinstance(v, tuple) else
+                     f"{k} {v[0]:.3g} (normalised {v[1]:.2g})"
+                     for k, v in errs.items())
+
+
+def profile_text(prof):
+    """``device_busy``'s result as printed."""
+    return (f"wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f}"
+            f" ms (busy {prof['busy_share']:.2f}, {prof['device_ops']} "
+            f"kernels and copies; every profiler event: "
+            f"{prof['all_events_ms']:.1f} ms): " + ", ".join(
+                f"{g} {ms:.2f}" for g, ms in prof["groups_ms"].items())
+            + " ms; longest: " + "; ".join(f"{k} {ms:.2f} ms" for k, ms in
+                                            prof["top_ms"]))
+
+
+def phase_lm_serving(report):
+    """``LM_ARCH`` at full width and depth on the card through the port's
+    serving path: a batched prefill with every kernel launch held against
+    its plain version, timed; ``BatchedServer`` serving the prompts (the
+    path whose launches the kernels line counts), one decode step with
+    every sync an error; one group at full width and the dense path
+    (``LM_DENSE``) card against CPU; the two kernels timed at the
+    model's shapes."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.kernels import _build
+    from repro_torch.models import model
+    from repro_torch.serve import BatchedServer, Request, make_prefill_step
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(LM_ARCH)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(LM_SEED)
+    params = model.init(cfg, gen, DEV)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == cfg.param_count(), f"{LM_ARCH}: {n_params} "
+                                         f"parameters, declared "
+                                         f"{cfg.param_count()}")
+    per_prefill = {"flash_attention": model.n_groups(cfg),
+                   "ssd_scan": cfg.n_layers}
+    rng = np.random.RandomState(LM_SEED)
+    prompts = rng.randint(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(
+        np.int32)
+
+    # The batched prefill (the launcher's path), every launch checked.
+    prefill = make_prefill_step(cfg, block_q=128, block_k=128)
+    toks = torch.from_numpy(prompts).to(DEV)
+    live = {}
+    before = dict(_build.LAUNCHES)
+    with kernels_held(report, live):
+        logits, _ = prefill(params, toks)
+    torch.cuda.synchronize()
+    launched = launches_since(before)
+    check(launched == per_prefill, f"{LM_ARCH} prefill launches {launched},"
+                                   f" expected {per_prefill}")
+    check(tuple(logits.shape) == (LM_REQUESTS, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{LM_ARCH} prefill logits {tuple(logits.shape)}, or not finite")
+    del logits
+    prefill_ms = []
+    for _ in range(LM_PREFILL_REPEATS):
+        ms, _ = sync_ms(lambda: prefill(params, toks)[0])
+        prefill_ms.append(ms)
+    busy = device_busy(lambda: prefill(params, toks)[0])
+    busy.pop("out")
+    tokens = LM_REQUESTS * LM_PROMPT
+    best = min(prefill_ms)
+    print(f"phase 26: {LM_ARCH} ({n_params / 1e9:.3f} B parameters, bf16, "
+          f"{model.n_groups(cfg)} shared-block sites, {cfg.n_layers} mamba "
+          f"layers) prefill of {LM_REQUESTS} x {LM_PROMPT} tokens: "
+          f"{launched['flash_attention']} flash_attention and "
+          f"{launched['ssd_scan']} ssd_scan launches, each within tolerance "
+          f"of its plain version on its live inputs; "
+          f"{', '.join(f'{m:.1f}' for m in prefill_ms)} ms, "
+          f"{tokens / best * 1e3:.0f} prefill tokens/s at the best; "
+          f"profiled: {profile_text(busy)}", flush=True)
+
+    # BatchedServer: the serving entry point.  Each admission's prefill
+    # and each tick's decode step are timed between synchronizes, and
+    # their launches counted; the first decode step runs with every sync
+    # an error (the tick's read of the sampled tokens is outside it).
+    server = BatchedServer(cfg, params, LM_SLOTS, LM_PROMPT + LM_NEW,
+                           block=128)
+    step_prefill, step_decode = server.prefill, server.decode
+    admits, ticks = [], []
+
+    def timed(step, into, audit=False):
+        def run(*args):
+            before = dict(_build.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if audit and not into:
+                with sync_debug("error"):
+                    out = step(*args)
+            else:
+                out = step(*args)
+            torch.cuda.synchronize()
+            into.append(((time.perf_counter() - t) * 1e3,
+                         launches_since(before)))
+            return out
+        return run
+    server.prefill = timed(step_prefill, admits)
+    server.decode = timed(step_decode, ticks, audit=True)
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=LM_NEW)
+            for i in range(LM_REQUESTS)]
+    _build.reset_launches()
+    t_run = time.perf_counter()
+    server.run(reqs)
+    run_s = time.perf_counter() - t_run
+    for name in ("flash_attention", "ssd_scan"):
+        report["launches"][name] = _build.LAUNCHES[name]
+    check(all(r.done and len(r.out) == LM_NEW
+              and all(0 <= x < cfg.vocab for x in r.out) for r in reqs),
+          f"BatchedServer: requests not served {LM_NEW} tokens each")
+    check(len(admits) == LM_REQUESTS and len(ticks) == LM_NEW,
+          f"BatchedServer: {len(admits)} prefills, {len(ticks)} ticks")
+    check(all(c == per_prefill for _, c in admits),
+          f"launches per admission's prefill {[c for _, c in admits]}")
+    check(all(c == {"flash_attention": 0, "ssd_scan": 0} for _, c in ticks),
+          f"launches per decode step {[c for _, c in ticks]}")
+    decode_busy = device_busy(lambda: step_decode(
+        params, server.cache, server.next_tok, server.pos - 1)[0])
+    decode_busy.pop("out")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tick_ms = sorted(ms for ms, _ in ticks)
+    admit_ms = [ms for ms, _ in admits]
+    median_tick = tick_ms[len(tick_ms) // 2]
+    print(f"phase 26: BatchedServer ({LM_SLOTS} slots, {LM_REQUESTS} "
+          f"requests of {LM_PROMPT} tokens, {LM_NEW} new each) in "
+          f"{run_s:.2f} s: {per_prefill['flash_attention']} flash_attention "
+          f"and {per_prefill['ssd_scan']} ssd_scan launches per "
+          f"admission's prefill, none per decode step; the first decode "
+          f"step under set_sync_debug_mode(\"error\"): no sync; prefill "
+          f"(B=1) {', '.join(f'{m:.1f}' for m in admit_ms)} ms, "
+          f"{LM_PROMPT / min(admit_ms) * 1e3:.0f} tokens/s at the best; "
+          f"decode step {tick_ms[0]:.2f} / {median_tick:.2f} / "
+          f"{tick_ms[-1]:.2f} ms (min / median / max), "
+          f"{LM_SLOTS / median_tick * 1e3:.1f} decode tokens/s at the "
+          f"median; peak memory {peak:.2f} GiB; on {report['card']}",
+          flush=True)
+    print(f"phase 26: profiled decode step: {profile_text(decode_busy)}",
+          flush=True)
+    del server, step_prefill, step_decode
+
+    # The kernels at the model's shapes, on the first site's live inputs.
+    q, k, v, out, window, softcap, qs = live["flash_attention"]
+    attn = time_attention(report, LM_ARCH, q, k, v, out, window, softcap, qs,
+                          inputs="live: the first shared-block site of the "
+                                 "batched prefill")
+    args, chunk = live["ssd_scan"]
+    ssd = time_ssd(LM_ARCH, args, chunk,
+                   inputs="live: the first mamba layer of the batched "
+                          "prefill")
+    print(f"phase 26: flash_attention at {LM_ARCH}'s prefill (B={q.shape[0]}"
+          f" S={q.shape[1]} H={q.shape[2]} G={k.shape[2]} hd={q.shape[3]}, "
+          f"bf16): {timing_text(attn)}", flush=True)
+    print(f"phase 26: ssd_scan at {LM_ARCH}'s prefill (B={args[0].shape[0]}"
+          f" S={args[0].shape[1]} H={args[0].shape[2]} P={args[0].shape[3]} "
+          f"G={args[3].shape[2]} N={args[3].shape[3]} chunk={chunk}, bf16): "
+          f"{timing_text(ssd)}; passes " + ", ".join(
+              f"{kk} {vv * 1e3:.1f} us" for kk, vv in
+              ssd["kernels_ms"].items()), flush=True)
+    del live, q, k, v, out, args
+
+    # One hybrid group at full width, card against CPU.
+    b, s, n = LM_TWIN
+    one = dataclasses.replace(cfg, n_layers=cfg.hybrid_period)
+    one_params = dict(params, layers=params["layers"][:1])
+    del params
+    torch.cuda.empty_cache()
+    twin_toks = rng.randint(0, cfg.vocab, (b, s + n)).astype(np.int32)
+    t_twin = time.perf_counter()
+    twin_errs, twin_launched = card_against_cpu(
+        f"{LM_ARCH}, one group", one, one_params, twin_toks, s, n)
+    twin_s = time.perf_counter() - t_twin
+    check(twin_launched == {"flash_attention": 1,
+                            "ssd_scan": cfg.hybrid_period},
+          f"one group's prefill launches {twin_launched}")
+    print(f"phase 26: {LM_ARCH} cut to one group (the shared block and "
+          f"{cfg.hybrid_period} mamba layers, full width), B={b} S={s}, "
+          f"{n} teacher-forced decode steps: card against CPU, logits and "
+          f"the prefill's cache within {LM_TOL}: max abs err "
+          f"{errors_text(twin_errs)} ({twin_s:.1f} s)", flush=True)
+    del one_params
+    torch.cuda.empty_cache()
+
+    # The dense path.
+    arch, layers, b, s, n = LM_DENSE
+    dense = dataclasses.replace(configs.get(arch), n_layers=layers)
+    gen.manual_seed(LM_SEED)
+    dense_params = model.init(dense, gen, DEV)
+    dense_toks = rng.randint(0, dense.vocab, (b, s + n)).astype(np.int32)
+    t_dense = time.perf_counter()
+    dense_errs, dense_launched = card_against_cpu(
+        f"{arch}, {layers} layers", dense, dense_params, dense_toks, s, n)
+    dense_s = time.perf_counter() - t_dense
+    check(dense_launched == {"flash_attention": layers, "ssd_scan": 0},
+          f"{arch} prefill launches {dense_launched}")
+    print(f"phase 26: {arch} at full width, {layers} of its "
+          f"{configs.get(arch).n_layers} layers, B={b} S={s}, {n} "
+          f"teacher-forced decode steps ({dense_launched['flash_attention']}"
+          f" flash_attention launches per prefill, hd={dense.head_dim}, "
+          f"GQA r={dense.kv_groups}): card against CPU, logits and the "
+          f"prefill's cache within {LM_TOL}: max abs err "
+          f"{errors_text(dense_errs)} ({dense_s:.1f} s)", flush=True)
+    del dense_params
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"phase 26: {seconds:.1f} s on {report['card']}", flush=True)
+    report["lm"] = dict(
+        arch=LM_ARCH, parameters=n_params, prefill_launches=launched,
+        prefill_ms=prefill_ms, prefill_tokens_per_s=tokens / best * 1e3,
+        prefill_profile=busy, serve_s=run_s, admit_ms=admit_ms,
+        decode_step_ms=[ms for ms, _ in ticks],
+        decode_tokens_per_s=LM_SLOTS / median_tick * 1e3,
+        decode_profile=decode_busy, peak_gib=peak,
+        serve_launches={k: report["launches"][k]
+                        for k in ("flash_attention", "ssd_scan")},
+        one_group_errors=twin_errs, one_group_s=twin_s,
+        dense_errors=dense_errs, dense_s=dense_s, seconds=seconds)
+    return attn, ssd
+
+
 # -- driver -----------------------------------------------------------------
 
 def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
@@ -2862,6 +3305,7 @@ def main(argv=None) -> int:
         twin_result = run("twin", finish_twin, twin)
     check_twin(report, twin_result)
     run(25, phase_sync_audit, report, cell60_lanes, mesh60)
+    lm_attention, lm_ssd = run(26, phase_lm_serving, report)
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small, *wide]),
         kernel_entry("stacked_count_stats", report, service,
@@ -2869,10 +3313,11 @@ def main(argv=None) -> int:
         kernel_entry("popcount_reduce", report, popcount, [popcount]),
         kernel_entry("masked_row_reduce", report, row_reduce["or"],
                      [row_reduce["or"], row_reduce["and"]]),
-        kernel_entry("flash_attention", report, attention[0], attention,
+        kernel_entry("flash_attention", report, lm_attention,
+                     [lm_attention, *attention],
                      "allclose rtol = atol = 2e-2 (bf16), 2e-5 (f32); "
                      "normalised error <= 5e-3 (bf16), 2e-5 (f32)"),
-        kernel_entry("ssd_scan", report, ssd, [ssd],
+        kernel_entry("ssd_scan", report, lm_ssd, [lm_ssd, ssd],
                      "y: allclose rtol = atol = 5e-2 (bf16), 1e-4 (f32), "
                      "normalised error <= 5e-3 (bf16), 1e-4 (f32); "
                      "state (f32): allclose and normalised error 1e-4")]}

@@ -1,8 +1,8 @@
 """Public-API surface snapshot of the port's front-door modules
 (counterpart of ``tools/api_surface.py``).
 
-``repro_torch.registry``, ``.solver``, ``.service``, ``.obs`` and
-``.analysis`` are the port's public API.  This tool renders each
+``repro_torch.registry``, ``.solver``, ``.service``, ``.obs``,
+``.analysis`` and ``.serve`` are the port's public API.  This tool renders each
 module's ``__all__`` (dataclass fields, NamedTuple fields, class methods,
 function signatures) into a canonical text and compares it with the
 checked-in snapshot ``api_surface.txt`` beside this file:
@@ -29,7 +29,8 @@ import sys
 from typing import List, Optional
 
 MODULES = ("repro_torch.registry", "repro_torch.solver",
-           "repro_torch.service", "repro_torch.obs", "repro_torch.analysis")
+           "repro_torch.service", "repro_torch.obs", "repro_torch.analysis",
+           "repro_torch.serve")
 SNAPSHOT = pathlib.Path(__file__).resolve().with_name("api_surface.txt")
 
 

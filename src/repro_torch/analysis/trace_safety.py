@@ -10,6 +10,9 @@ a tensor, ``torch.nonzero``, a boolean-mask index, a blocking copy)
 stalls the dispatch every step, and makes the round impossible to
 capture as a CUDA graph.  ``chip_smoke.py`` phase 25 holds the same
 claim on the card under ``torch.cuda.set_sync_debug_mode("error")``.
+The LM serving steps (``serve.engine``'s prefill and decode step
+functions) are held to the same rule: the driver reads the host once a
+tick, outside them (phase 26 audits a decode step on the card).
 
 The pass is static, in three stages:
 
@@ -61,8 +64,9 @@ from typing import Dict, Iterator, List, Optional, Set, Tuple
 from repro_torch.analysis.core import (Finding, Module, RepoContext, Rule,
                                        register)
 
-#: The round loop's entry points, ``module:qualname``.  Everything they
-#: reach on the card must run without a host sync.
+#: The round loop's entry points and the LM serving steps,
+#: ``module:qualname``.  Everything they reach on the card must run
+#: without a host sync.
 ROUND_LOOP_ROOTS: Tuple[str, ...] = (
     "repro_torch.core.engine:make_step.step",
     "repro_torch.core.engine:make_expand.expand",
@@ -76,6 +80,8 @@ ROUND_LOOP_ROOTS: Tuple[str, ...] = (
     "repro_torch.problems.dominating_set:make_dominating_set.evaluate_batch",
     "repro_torch.problems.subset_sum:make_subset_sum.evaluate_batch",
     "repro_torch.service.batch_problem:StackedSpec.bind.evaluate_batch",
+    "repro_torch.serve.engine:make_prefill_step.step",
+    "repro_torch.serve.engine:make_decode_step.step",
 )
 
 #: The package whose methods and closures attribute calls resolve to.

@@ -5,8 +5,8 @@ as ``int32`` (PyTorch has no bitwise operators for ``uint32`` on the
 CPU).  These functions move problem tables, whole lane states and kernel
 operands across as numpy arrays, bit for bit, so a parity test or the
 chip smoke can start both packages from identical state and compare them
-afterwards; the service's stacked tables and lanes cross the same way.
-A bfloat16 array of the reference (numpy's ``ml_dtypes.bfloat16``)
+afterwards; the service's stacked tables and lanes cross the same way,
+and so do the LM's parameters (``lm_params``).  A bfloat16 array of the reference (numpy's ``ml_dtypes.bfloat16``)
 crosses through a 16-bit view, never through a float round trip.
 Nothing here imports the reference: its values arrive as numpy arrays
 (or anything ``np.asarray`` takes) in NamedTuples with the same fields.
@@ -14,7 +14,7 @@ Nothing here imports the reference: its values arrive as numpy arrays
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -101,3 +101,34 @@ def load_service_state(svc, lanes: Any, tables: Any) -> None:
         family=np.array(tables.family, np.int32))
     svc._write_tables()
     svc._set_lanes(lanes_from_numpy(lanes, svc.problem, svc._home))
+
+
+def _unstack(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _unstack(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _first_leaf(tree: Dict[str, Any]) -> Any:
+    v = next(iter(tree.values()))
+    return _first_leaf(v) if isinstance(v, dict) else v
+
+
+def lm_params(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The reference's LM parameter tree (nested dicts of numpy arrays,
+    or anything ``np.asarray`` takes) as the port's, on ``device``: the
+    same leaves, bit for bit (``tensor``), in the reference's ``[in,
+    out]`` layout.  The stacked group axis of ``layers`` becomes a list
+    of per-group dicts, and a hybrid group's ``[hybrid_period, ...]``
+    mamba leaves a list of per-layer dicts."""
+    from repro_torch.core.api import tree_map
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    layers = tree["layers"]
+    groups = []
+    for i in range(len(_first_leaf(layers))):
+        gp = _unstack(layers, i)
+        if "mamba" in gp:
+            period = len(_first_leaf(gp["mamba"]))
+            gp["mamba"] = [_unstack(gp["mamba"], j) for j in range(period)]
+        groups.append(gp)
+    out["layers"] = groups
+    return tree_map(lambda leaf: tensor(leaf, device), out)

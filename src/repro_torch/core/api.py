@@ -74,8 +74,12 @@ class NodeEval(NamedTuple):
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
-    """Map ``fn`` over the tensor leaves of (Named)tuples of tensors."""
-    if isinstance(tree, tuple):
+    """Map ``fn`` over the leaves of (Named)tuples, lists and dicts of
+    tensors (the LM's parameters and caches are dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
         mapped = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
         return type(tree)(*mapped) if hasattr(tree, "_fields") \
             else type(tree)(mapped)
@@ -83,7 +87,9 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 
 
 def tree_leaves(tree: PyTree) -> list:
-    if isinstance(tree, tuple):
+    if isinstance(tree, dict):
+        return [leaf for sub in tree.values() for leaf in tree_leaves(sub)]
+    if isinstance(tree, (tuple, list)):
         return [leaf for sub in tree for leaf in tree_leaves(sub)]
     return [tree]
 

@@ -1,5 +1,6 @@
-"""Blocked causal attention (GQA / SWA / softcap) in plain PyTorch
-(counterpart of ``repro.models.attention``'s ``blocked_attention``).
+"""Attention in plain PyTorch (counterpart of ``repro.models.attention``):
+RoPE, blocked causal attention (GQA / SWA / softcap) and one-token
+decode attention against a (rolling) KV cache.
 
 A blocked online softmax with f32 running (max, sum, acc), KV block by KV
 block.  It is the plain version of the ``flash_attention`` kernel
@@ -9,7 +10,8 @@ arithmetic: f32 scores from the inputs' own values, masked scores set to
 quirk of the flash convention), ``l`` clamped at 1e-30.  Unlike the
 reference's nested scans, the query blocks run side by side: each query
 row sees the same KV blocks in the same order, so its arithmetic is the
-same.  RoPE, decode and the quantized cache wait for the LM slice.
+same.  The int8 KV cache (``quantize_kv``, ``decode_attention_quant``)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,40 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# RoPE (partial-fraction capable: glm4 rotates half the head dim).
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, fraction: float,
+                theta: float):
+    """cos/sin tables [..., rot/2] (f32) for the rotated prefix of the
+    head dim, and ``rot``."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    freqs = theta ** (-torch.arange(0, rot, 2, dtype=torch.float32,
+                                    device=positions.device) / rot)
+    ang = positions[..., None].float() * freqs               # [..., rot/2]
+    return torch.cos(ang), torch.sin(ang), rot
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rot: int) -> torch.Tensor:
+    """x: [B, S, H, hd]; cos/sin: [B, S, rot/2] (broadcast over heads).
+    Pairs (2i, 2i + 1) of the first ``rot`` dims rotate; the rest pass."""
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    c, s = cos[..., None, :], sin[..., None, :]               # head axis
+    o1 = x1 * c - x2 * s
+    o2 = x2 * c + x1 * s
+    # Back to the input dtype before the concat, as the reference does
+    # (its bf16 K/Q buffers are rounded there).
+    out = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([out, xp], dim=-1)
 
 
 def _block_scores(qb: torch.Tensor, kb: torch.Tensor, scale: float,
@@ -106,3 +142,41 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # [B, nq, G, R, Q, hd] -> [B, nq, Q, G, R, hd] -> [B, S, H, hd]
     out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, s, h, hd)
     return out[:, :s_orig].to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, *,
+                     window: Optional[int] = None,
+                     softcap: float = 0.0,
+                     query_scale: Optional[float] = None,
+                     k_positions: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: [B, 1, H, hd]; caches: [B, S, G, hd]; ``pos`` the new token's
+    position (one for the whole batch: the serving driver runs its slots
+    in lockstep).  ``k_positions`` [S] gives the absolute position held
+    by each cache slot (rolling-window caches; negative for a slot not
+    written yet); defaults to arange(S).  Returns [B, 1, H, hd] in q's
+    dtype.  Scores and the PV product accumulate in f32 from the
+    operands' own values; p is rounded to q's dtype first.
+    """
+    b, _, h, hd = q.shape
+    s, g = k_cache.shape[1], k_cache.shape[2]
+    r = h // g
+    scale = query_scale if query_scale is not None else 1.0 / math.sqrt(hd)
+    qh = q.reshape(b, 1, g, r, hd)
+    sc = torch.einsum("bqgrd,bkgd->bgrqk", qh.float(),
+                      k_cache.to(q.dtype).float()) * scale
+    if softcap > 0.0:
+        sc = softcap * torch.tanh(sc / softcap)
+    kpos = (torch.arange(s, device=q.device) if k_positions is None
+            else k_positions)
+    ok = (kpos <= pos) & (kpos >= 0)                            # [S]
+    if window is not None:
+        ok &= (pos - kpos) < window
+    sc = torch.where(ok, sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bgrqd", p.to(q.dtype).float(),
+                       v_cache.to(q.dtype).float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)

@@ -1,13 +1,13 @@
-"""The Mamba-2 SSD scan (state-space duality, arXiv:2405.21060) in plain
-PyTorch (counterpart of ``repro.models.ssm``'s ``ssd_chunked`` and
-``ssd_decode_step``).
+"""The Mamba-2 SSD scan (state-space duality, arXiv:2405.21060) and the
+mixer's causal depthwise conv in plain PyTorch (counterpart of
+``repro.models.ssm``).
 
 ``ssd_chunked`` is the plain version of the ``ssd_scan`` kernel
 (``kernels/csrc/ssd_scan.cu``): the sequence is cut into chunks of Q;
 each chunk's output is a decay-masked quadratic form over the chunk plus
 the contribution of the state carried in from the chunks before it.  All
-internals run in f32; y comes back in x's dtype.  The rest of the mixer
-(conv, gating, projections) waits for the LM slice.
+internals run in f32; y comes back in x's dtype.  The projections and
+gating of the mixer are ``models.blocks.apply_mamba_layer``.
 """
 
 from __future__ import annotations
@@ -99,15 +99,42 @@ def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     state: [B, H, N, P]; x: [B, H, P]; dt: [B, H]; b/c: [B, G, N].
     Returns (y [B, H, P] in x's dtype, new state).
     """
-    H = state.shape[1]
-    rep = H // b.shape[1]
+    B, H = state.shape[:2]
+    G, N = b.shape[1], b.shape[2]
     f32 = torch.float32
     xf, dtf = x.to(f32), dt.to(f32)
-    bh = b.to(f32).repeat_interleave(rep, dim=1)         # [B,H,N]
-    ch = c.to(f32).repeat_interleave(rep, dim=1)
+    # Groups -> heads (head h reads group h // (H / G)) by a broadcast:
+    # ``repeat_interleave`` may read its repeat count back from the card.
+    bh = b.to(f32)[:, :, None, :].expand(B, G, H // G, N).reshape(B, H, N)
+    ch = c.to(f32)[:, :, None, :].expand(B, G, H // G, N).reshape(B, H, N)
     dec = torch.exp(dtf * a[None, :])                    # [B,H]
     upd = (dtf[..., None] * bh)[..., None] * xf[:, :, None, :]   # [B,H,N,P]
     new_state = state * dec[..., None, None] + upd
     y = torch.einsum("bhn,bhnp->bhp", ch, new_state)
     y = y + xf * d[None, :, None]
     return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (the short conv in the mamba2 block).
+# ---------------------------------------------------------------------------
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, C]; w: [K, C] depthwise taps.  Causal (left) padding;
+    f32 accumulation, the result in x's dtype."""
+    k = w.shape[0]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):                                    # K is 4: unrolled
+        out = out + xp[:, i:i + x.shape[1], :].float() * w[i].float()
+    return out.to(x.dtype)
+
+
+def causal_conv_step(cache: torch.Tensor, xt: torch.Tensor, w: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cache: [B, K-1, C] (the previous inputs); xt: [B, C].  Returns
+    (yt [B, C] in xt's dtype, the new cache [B, K-1, C])."""
+    window = torch.cat([cache, xt[:, None, :]], dim=1)        # [B, K, C]
+    yt = torch.einsum("bkc,kc->bc", window.float(), w.float())
+    return yt.to(xt.dtype), window[:, 1:, :]

@@ -1,0 +1,10 @@
+"""LM serving of the port (counterpart of ``repro.serve``): the prefill
+and decode step factories (``engine``) and the lockstep slot server
+(``driver``)."""
+
+from repro_torch.serve.driver import BatchedServer, Request
+from repro_torch.serve.engine import (greedy_sample, make_decode_step,
+                                      make_prefill_step)
+
+__all__ = ["BatchedServer", "Request", "greedy_sample", "make_decode_step",
+           "make_prefill_step"]

@@ -41,7 +41,11 @@ def test_port_sources_import_no_jax_or_reference():
                 "analysis/__main__.py", "analysis/core.py",
                 "analysis/trace_safety.py", "analysis/kernel_contract.py",
                 "analysis/telemetry.py", "analysis/api_hygiene.py",
-                "analysis/api_surface.py", "obs/report.py"):
+                "analysis/api_surface.py", "obs/report.py",
+                "models/config.py", "models/params.py", "models/layers.py",
+                "models/blocks.py", "models/model.py", "configs/__init__.py",
+                "configs/zamba2_2_7b.py", "serve/__init__.py",
+                "serve/engine.py", "serve/driver.py", "launch/serve.py"):
         assert PORT / new in files, new
     bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
            for p in files for line, root in _imported_roots(p)
@@ -63,6 +67,9 @@ def test_port_sources_import_no_jax_or_reference():
     "repro_torch.analysis",
     "repro_torch.analysis.api_surface",
     "repro_torch.obs.report",
+    "repro_torch.serve",
+    "repro_torch.launch.serve",
+    "repro_torch.configs",
 ])
 def test_port_imports_with_jax_blocked(module):
     """A fresh interpreter with ``jax`` and ``repro`` made unimportable
@@ -72,6 +79,9 @@ def test_port_imports_with_jax_blocked(module):
         "for name in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[name] = None\n"
         f"import {module}\n"
+        "import repro_torch.configs as c\n"
+        "for arch in c.ARCH_IDS:\n"
+        "    c.get(arch), c.smoke(arch)\n"
         "from repro_torch import registry\n"
         "assert registry.names() == ('ds', 'ss', 'vc'), registry.names()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"

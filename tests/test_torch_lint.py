@@ -761,10 +761,19 @@ SURFACE_DIFFERENCES = {
 }
 
 
+#: Front-door modules of the port that the reference's snapshot lacks.
+PORT_ONLY_MODULES = {
+    "serve": "the LM serving entry points (Request, BatchedServer, the step "
+             "factories); the reference snapshots its solver front door "
+             "only",
+}
+
+
 def test_the_port_surface_equals_the_reference_but_named_differences():
     ref = _members((ROOT / "tools/api_surface.txt").read_text())
     port = _members(SNAPSHOT.read_text())
-    assert set(ref) == set(port)
+    assert set(port) - set(ref) == set(PORT_ONLY_MODULES)
+    assert set(ref) <= set(port)
     found = set()
     for mod in ref:
         for name in set(ref[mod]) | set(port[mod]):
@@ -781,7 +790,8 @@ def test_every_export_is_in_the_snapshot():
     sections = parse_snapshot(SNAPSHOT.read_text())
     import repro_torch.analysis as analysis
     import repro_torch.obs as obs
-    for mod in (analysis, obs):
+    import repro_torch.serve as serve
+    for mod in (analysis, obs, serve):
         assert set(mod.__all__) == sections[mod.__name__]
 
 
