@@ -138,9 +138,26 @@ Phases (any failure raises and exits non-zero):
      8 teacher-forced decode steps) and qwen2-7b at full width cut to 2
      layers (B=1, S=256, 4 steps) on the card against the CPU within
      0.08;
+ 27. LM serving of the moe, vlm and audio families and the int8 KV
+     cache, bf16 at full width: mixtral-8x22b (4 of 56 layers) through
+     ``BatchedServer``, 2 slots x 6144 tokens (past its 4096 window: the
+     kernel's window and the rolling cache), 16 new each, the first
+     prefill's 4 ``flash_attention`` launches held against the plain
+     version, the prefill profiled by group (expert GEMMs,
+     dispatch/combine, elementwise, attention); llama4-scout (4 of 48)
+     with 4 slots x 1024, bf16 and int8 caches; musicgen-large (all 48
+     layers, 4 codebooks) with 4 slots x 1024; internvl2-76b (4 of 80)
+     through the launcher's path with 256 vision embeddings; each run's
+     prefill and decode tokens/s, launches per prefill and tick (none),
+     the first tick under ``set_sync_debug_mode("error")``, peak memory;
+     ``flash_attention`` timed at mixtral's and llama4's live shapes
+     beside SDPA (mixtral's window as a mask); the four families' smoke
+     configurations (hd 16 through the padded kernel) and mixtral's first
+     layer (B=1, S=128) on the card against the CPU within 0.08, routing
+     compared first (near-ties counted; with one, layer by layer);
      then the ``kernels`` line for all six kernels (``launches`` of the
-     LM kernels: phase 26's serving run), and the seconds each phase
-     took.  The CPU's side of phases 19, 20 and 22 runs in three
+     LM kernels: phases 26 and 27's serving runs), and the seconds each
+     phase took.  The CPU's side of phases 19, 20 and 22 runs in three
      processes of its own (``--cpu-twin``) while the card runs 19-24.
 
 The last line of standard output is
@@ -357,6 +374,27 @@ LM_PREFILL_REPEATS = 3
 LM_TWIN = (2, 256, 8)
 LM_DENSE = ("qwen2-7b", 2, 1, 256, 4)
 LM_TOL = 0.08
+#: Phase 27, LM serving of the moe, vlm and audio families and the int8
+#: KV cache, in bf16 at full width, weights from the port's init (a
+#: generator seeded ``FAMILY_SEED`` on the card), depth cut where the
+#: card's 80 GB or the phase's time forces it.  ``FAMILY_SERVE``: (arch,
+#: layers (None: all), slots = requests, prompt tokens, new tokens,
+#: kv_quant runs) through ``BatchedServer``; mixtral's 6144-token prompts
+#: pass its 4096-token window, so the kernel's window and the rolling
+#: cache both act.  ``FAMILY_LAUNCHER``: (arch, layers, B, S, decode
+#: steps) through the launcher's path with its vision input.
+#: ``FAMILY_TWIN``: (B, S, decode steps) of the four smoke configurations
+#: on the card and the CPU; ``MOE_LAYER_TWIN``: (B, S) of mixtral's first
+#: layer at full width fed one input on both sides.
+FAMILY_SEED = 27
+FAMILY_SERVE = (("mixtral-8x22b", 4, 2, 6144, 16, (False,)),
+                ("llama4-scout-17b-a16e", 4, 4, 1024, 16, (False, True)),
+                ("musicgen-large", None, 4, 1024, 32, (False,)))
+FAMILY_LAUNCHER = ("internvl2-76b", 4, 2, 1024, 8)
+FAMILY_TWIN = (2, 40, 3)
+MOE_LAYER_TWIN = (1, 128)
+#: The MoE's steps, profiled as ranges of one mixtral prefill.
+MOE_STEPS = ("route", "dispatch", "gather_tokens", "expert_ffn", "combine")
 #: q and k are drawn at this scale, so the scores scale * q.k spread by
 #: about 6 (held at MIN_SCORE_STD or more): the softmax is peaked, a
 #: window changes which key wins, and the softcap bends the largest
@@ -1446,9 +1484,11 @@ def attention_parity(parity, case, q, k, v, out):
 def time_attention(report, name, q, k, v, out, window, softcap, qs,
                    **extra):
     """``ops.flash_attention`` on (q, k, v) timed over ``ATTN_ITERS``
-    launches beside its plain version (once) and, without a window,
-    softcap or query scale, SDPA (held against the kernel's ``out``);
-    with the bound from the inputs: the
+    launches beside its plain version (once) and, without a softcap or
+    query scale, SDPA (held against the kernel's ``out``): causal, a
+    window as a boolean [S, S] mask with k, v repeated to H heads before
+    the timing (SDPA has no window argument); with the bound from the
+    inputs: the
     tensor cores' (or CUDA cores') rate for its products, the SFU's for
     its exps (and tanh), or the bytes."""
     from repro_torch.kernels import ops, ref
@@ -1474,6 +1514,20 @@ def time_attention(report, name, q, k, v, out, window, softcap, qs,
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         lib_err, lib_rel, _ = close(library().transpose(1, 2), out, TOL[dt],
                                     REL_TOL[dt])
+    elif softcap == 0.0 and qs is None:
+        r = h // g
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(r, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        pos = torch.arange(s, device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < window))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask)
+        lib_err, lib_rel, _ = close(library().transpose(1, 2), out, TOL[dt],
+                                    REL_TOL[dt])
     t = measure(
         "flash_attention",
         lambda: ops.flash_attention(q, k, v, window=window, softcap=softcap,
@@ -1488,6 +1542,9 @@ def time_attention(report, name, q, k, v, out, window, softcap, qs,
         tolerance=TOL[dt], rel_tolerance=REL_TOL[dt], **extra)
     if library is not None:
         t["library"] = "torch.nn.functional.scaled_dot_product_attention"
+        if window is not None:
+            t["library"] += (" (the window as a boolean mask; k, v "
+                             "repeated to H heads outside the timing)")
         t["library_vs_kernel_max_abs_err"] = lib_err
         t["library_vs_kernel_rel_err"] = lib_rel
     return t
@@ -1497,7 +1554,8 @@ def timing_text(t):
     """The timing of ``time_attention`` / ``time_ssd`` as printed."""
     lib = ""
     if "hd" in t:                       # attention: SDPA beside it
-        lib = (f", SDPA {t['library_ms']:.3f} ms"
+        lib = (f", SDPA{' (window as a mask)' if t['window'] else ''} "
+               f"{t['library_ms']:.3f} ms"
                if t["library_ms"] is not None
                else ", SDPA: none (window/softcap/query_scale)")
     work = (f"{t['flops'] / 1e9:.1f} GFLOP, {t['bytes'] / 1e6:.1f} MB")
@@ -2788,10 +2846,11 @@ def launches_since(before):
             for k in ("flash_attention", "ssd_scan")}
 
 
-def lm_run(cfg, params, toks, s, n):
-    """Prefill ``toks[:, :s]``, then ``n`` teacher-forced decode steps,
-    on the parameters' device: ({step: logits}, {"prefill" / "decoded":
-    cache}), in f32 on the CPU, and the prefill's launches."""
+def lm_run(cfg, params, toks, s, n, vision=None):
+    """Prefill ``toks[:, :s]`` (and a vlm model's ``vision``), then ``n``
+    teacher-forced decode steps, on the parameters' device: ({step:
+    logits}, {"prefill" / "decoded": cache}), in f32 on the CPU, and the
+    prefill's launches."""
     from repro_torch.core.api import tree_map
     from repro_torch.kernels import _build
     from repro_torch.models import model
@@ -2799,7 +2858,8 @@ def lm_run(cfg, params, toks, s, n):
     dev = params["embed"].device
     toks = torch.from_numpy(toks).to(dev)
     before = dict(_build.LAUNCHES)
-    logits, cache = make_prefill_step(cfg, 128, 128)(params, toks[:, :s])
+    logits, cache = make_prefill_step(cfg, 128, 128)(
+        params, toks[:, :s], None if vision is None else vision.to(dev))
     launched = launches_since(before)
     # A copy, always: on the CPU ``.float().cpu()`` of an f32 leaf is the
     # leaf itself, which the decode steps then write in place.
@@ -2816,16 +2876,16 @@ def lm_run(cfg, params, toks, s, n):
     return out, caches, launched
 
 
-def card_against_cpu(what, cfg, params, toks, s, n):
+def card_against_cpu(what, cfg, params, toks, s, n, vision=None):
     """``lm_run`` on the card and on the CPU (the same parameters, moved):
     every logits row and the prefill's cache within ``LM_TOL``; the cache
     after the decode steps measured (max abs and normalised error per
     leaf), not held.  Returns the errors and the card's prefill
     launches."""
     from repro_torch.core.api import tree_leaves, tree_map
-    card, card_cache, launched = lm_run(cfg, params, toks, s, n)
+    card, card_cache, launched = lm_run(cfg, params, toks, s, n, vision)
     cpu_params = tree_map(lambda x: x.cpu(), params)
-    cpu, cpu_cache, _ = lm_run(cfg, cpu_params, toks, s, n)
+    cpu, cpu_cache, _ = lm_run(cfg, cpu_params, toks, s, n, vision)
     errs = {}
     for step in card:
         errs[step] = float((card[step] - cpu[step]).abs().max())
@@ -3079,6 +3139,489 @@ def phase_lm_serving(report):
     return attn, ssd
 
 
+# -- phase 27: the moe, vlm and audio families and the int8 KV cache -------
+
+def cut(cfg, layers):
+    """``cfg`` with its first ``layers`` layers (None: all of them)."""
+    import dataclasses
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def cache_bytes(cache):
+    from repro_torch.core.api import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(cache))
+
+
+def serve_run(report, cfg, params, prompts, new, kv_quant, live=None):
+    """``BatchedServer`` with one slot a prompt serving ``prompts`` for
+    ``new`` tokens each: every admission's prefill and tick timed between
+    synchronizes with its launches counted, the first admission's
+    prefill with every kernel launch held against its plain version (when
+    ``live`` is given), the first tick under
+    ``set_sync_debug_mode("error")``.  The launches are counted from 0
+    over the run and added to the kernels line's."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import BatchedServer, Request
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    slots, plen = len(prompts), prompts.shape[1]
+    server = BatchedServer(cfg, params, slots, plen + new, block=128,
+                           kv_quant=kv_quant)
+    step_prefill, step_decode = server.prefill, server.decode
+    admits, ticks = [], []
+
+    def timed(step, into, first):
+        def run(*args):
+            before = dict(_build.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with (first() if not into else contextlib.nullcontext()):
+                out = step(*args)
+            torch.cuda.synchronize()
+            into.append(((time.perf_counter() - t) * 1e3,
+                         launches_since(before)))
+            return out
+        return run
+    server.prefill = timed(step_prefill, admits, lambda: (
+        kernels_held(report, live) if live is not None
+        else contextlib.nullcontext()))
+    server.decode = timed(step_decode, ticks, lambda: sync_debug("error"))
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=new)
+            for i in range(slots)]
+    _build.reset_launches()
+    t_run = time.perf_counter()
+    server.run(reqs)
+    run_s = time.perf_counter() - t_run
+    served = {k: _build.LAUNCHES[k] for k in ("flash_attention", "ssd_scan")}
+    for name, count in served.items():
+        report["launches"][name] += count
+    per_prefill = {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+    def ok_token(x):                 # audio: a list of n_codebooks codes
+        return all(0 <= c < cfg.vocab for c in (
+            x if cfg.n_codebooks else [x]))
+    check(all(r.done and len(r.out) == new and all(map(ok_token, r.out))
+              for r in reqs),
+          f"{cfg.name}: requests not served {new} tokens each")
+    check(len(admits) == slots and len(ticks) == new,
+          f"{cfg.name}: {len(admits)} prefills, {len(ticks)} ticks")
+    check(all(c == per_prefill for _, c in admits),
+          f"{cfg.name}: launches per admission's prefill "
+          f"{[c for _, c in admits]}, expected {per_prefill}")
+    check(all(c == {"flash_attention": 0, "ssd_scan": 0} for _, c in ticks),
+          f"{cfg.name}: launches per decode step {[c for _, c in ticks]}")
+    admit_ms = [ms for ms, _ in admits]
+    tick_ms = sorted(ms for ms, _ in ticks)
+    median = tick_ms[len(tick_ms) // 2]
+    return dict(
+        run_s=run_s, admit_ms=admit_ms, decode_step_ms=[ms for ms, _ in
+                                                        ticks],
+        prefill_tokens_per_s=plen / min(admit_ms) * 1e3,
+        decode_tokens_per_s=slots / median * 1e3, median_tick_ms=median,
+        min_tick_ms=tick_ms[0], max_tick_ms=tick_ms[-1],
+        launches_per_prefill=per_prefill, launches=served,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        cache_bytes=cache_bytes(server.cache),
+        tokens=[r.out for r in reqs])
+
+
+def serve_text(arch, kv_quant, r, slots, plen, new):
+    per_prefill = r["launches_per_prefill"]["flash_attention"]
+    return (f"{arch}{' (int8 KV cache)' if kv_quant else ''}: "
+            f"BatchedServer, {slots} slots x {plen} tokens, {new} new each, "
+            f"in {r['run_s']:.2f} s: {per_prefill} flash_attention launches"
+            f" per admission's prefill, none per decode step; the first "
+            f"tick under "
+            f"set_sync_debug_mode(\"error\"): no sync; prefill (B=1) "
+            f"{', '.join(f'{m:.1f}' for m in r['admit_ms'])} ms, "
+            f"{r['prefill_tokens_per_s']:.0f} tokens/s at the best; decode "
+            f"tick {r['min_tick_ms']:.2f} / {r['median_tick_ms']:.2f} / "
+            f"{r['max_tick_ms']:.2f} ms (min / median / max), "
+            f"{r['decode_tokens_per_s']:.1f} decode tokens/s at the median;"
+            f" peak memory {r['peak_gib']:.2f} GiB; cache "
+            f"{r['cache_bytes'] / 1e6:.1f} MB")
+
+
+@contextlib.contextmanager
+def moe_recorded(calls, layers=None):
+    """Inside the block, every MoE call's (router input, router) goes to
+    ``calls`` and, with ``layers``, every transformer layer's (parameters,
+    input, context, window), on the host, in call order."""
+    from repro_torch.models import blocks
+    moe_ffn, layer = blocks.moe_ffn, blocks.apply_transformer_layer
+
+    def rec_moe(x, prm, cfg):
+        calls.append((x.to("cpu", copy=True), prm["router"].cpu()))
+        return moe_ffn(x, prm, cfg)
+
+    def rec_layer(p, h, ctx, window, cache=None):
+        layers.append((p, h.to("cpu", copy=True), ctx, window))
+        return layer(p, h, ctx, window, cache)
+    blocks.moe_ffn = rec_moe
+    if layers is not None:
+        blocks.apply_transformer_layer = rec_layer
+    try:
+        yield
+    finally:
+        blocks.moe_ffn, blocks.apply_transformer_layer = moe_ffn, layer
+
+
+def routing_ties(what, cfg, cpu_calls, card_calls):
+    """The card's routing against the CPU's, MoE call by call: expert ids
+    equal on every token that is no near-tie on the CPU side
+    (``models.moe.near_ties``, bf16: the larger of 1e-4 and the bf16
+    resolution of the router input carried to the gap in quadrature).
+    The near-tie masks, and their count."""
+    from repro_torch.models import moe
+    check(len(cpu_calls) == len(card_calls) > 0,
+          f"{what}: {len(cpu_calls)} MoE calls on the CPU, "
+          f"{len(card_calls)} on the card")
+    masks = []
+    for i, ((x, r), (y, _)) in enumerate(zip(cpu_calls, card_calls)):
+        tied = moe.near_ties(x, r, cfg.moe, bf16=x.dtype == torch.bfloat16)
+        want, _ = moe.route(x, r, cfg.moe)
+        got, _ = moe.route(y, r, cfg.moe)
+        bad = (want != got).any(dim=-1) & ~tied
+        check(not bool(bad.any()), f"{what}: MoE call {i} routes "
+                                   f"{int(bad.sum())} token(s) otherwise "
+                                   f"on the card, no near-tie")
+        masks.append(tied)
+    return masks, sum(int(m.sum()) for m in masks)
+
+
+def layer_pair(what, cfg, card_p, cpu_p, h, ctx, window):
+    """One transformer layer on the card and on the CPU from the same
+    input ``h`` (host): the output's max abs error over the tokens whose
+    routing (a MoE layer's) is no near-tie, held within ``LM_TOL``; the
+    near-tie count."""
+    from repro_torch.models import blocks
+    calls = []
+    with moe_recorded(calls):
+        want, _ = blocks.apply_transformer_layer(cpu_p, h, ctx, window)
+        got, _ = blocks.apply_transformer_layer(card_p, h.to(DEV), ctx,
+                                                window)
+    keep = torch.ones(h.shape[:2], dtype=torch.bool)
+    ties = 0
+    if cfg.moe is not None:
+        (tied,), ties = routing_ties(what, cfg, calls[:1], calls[1:])
+        keep = ~tied.reshape(h.shape[:2])
+    got, want = got.float().cpu()[keep], want.float()[keep]
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL),
+          f"{what}: output card against CPU, max abs err {err} (tol "
+          f"{LM_TOL})")
+    return err, ties
+
+
+def family_twin(arch):
+    """``arch``'s smoke configuration (bf16, head_dim 16: the flash kernel
+    zero-pads it to 64) on the card and on the CPU from the same
+    parameters.  A MoE model's routing first, at every MoE call; with a
+    near-tie, the layers of the CPU's prefill again, each on both sides
+    from the CPU's input to it; without one, ``card_against_cpu``."""
+    from repro_torch import configs
+    from repro_torch.core.api import tree_map
+    from repro_torch.models import model
+    cfg = configs.smoke(arch)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(FAMILY_SEED)
+    params = model.init(cfg, gen, DEV)
+    b, s, n = FAMILY_TWIN
+    rng = np.random.RandomState(FAMILY_SEED)
+    toks = rng.randint(0, cfg.vocab, (b, s + n) + (
+        (cfg.n_codebooks,) if cfg.n_codebooks else ())).astype(np.int32)
+    vision = (torch.from_numpy(rng.standard_normal(
+        (b, cfg.vision_tokens, cfg.d_model)).astype(np.float32) * 0.02)
+        if cfg.vision_tokens else None)
+    if cfg.moe is None:
+        errs, launched = card_against_cpu(f"{arch} smoke", cfg, params, toks,
+                                          s, n, vision)
+        check(launched == {"flash_attention": cfg.n_layers, "ssd_scan": 0},
+              f"{arch} smoke prefill launches {launched}")
+        return f"logits and the prefill's cache within {LM_TOL}: " \
+               f"max abs err {errors_text(errs)}"
+    cpu_params = tree_map(lambda x: x.cpu(), params)
+    cpu_calls, card_calls, cpu_layers = [], [], []
+    with moe_recorded(cpu_calls, cpu_layers):
+        cpu, _, _ = lm_run(cfg, cpu_params, toks, s, n)
+    with moe_recorded(card_calls):
+        card, _, launched = lm_run(cfg, params, toks, s, n)
+    check(launched == {"flash_attention": cfg.n_layers, "ssd_scan": 0},
+          f"{arch} smoke prefill launches {launched}")
+    _, ties = routing_ties(f"{arch} smoke", cfg, cpu_calls, card_calls)
+    if not ties:
+        errs = {}
+        for step in card:
+            errs[step] = float((card[step] - cpu[step]).abs().max())
+            check(torch.allclose(card[step], cpu[step], rtol=LM_TOL,
+                                 atol=LM_TOL),
+                  f"{arch} smoke: {step} logits, card against CPU: max abs "
+                  f"err {errs[step]}")
+        return (f"routing equal in {len(cpu_calls)} MoE calls, no "
+                f"near-tie; "
+                f"logits within {LM_TOL}: max abs err {errors_text(errs)}")
+    prefill = [c for c in cpu_layers if c[2].mode == "prefill"]
+    check(len(prefill) == cfg.n_layers, f"{arch}: {len(prefill)} layers")
+    errs, layer_ties = [], 0
+    for i, (p, h, ctx, window) in enumerate(prefill):
+        err, t = layer_pair(f"{arch} smoke layer {i}", cfg,
+                            params["layers"][i]["blk"], p, h, ctx, window)
+        errs.append(err)
+        layer_ties += t
+    return (f"routing equal in {len(cpu_calls)} MoE calls outside {ties} "
+            f"near-tie token(s), so layer by layer (each fed the CPU's "
+            f"input): "
+            f"max abs err {', '.join(f'{e:.3g}' for e in errs)} within "
+            f"{LM_TOL} ({layer_ties} near-tie token(s) left out)")
+
+
+def moe_profile(fn):
+    """One call of ``fn`` under the profiler with each MoE step of
+    ``MOE_STEPS`` a range: the device time of its kernels by group, each
+    kernel attributed through the host operation that launched it to
+    the innermost range around it.  Expert GEMMs are the GEMM kernels
+    inside ``expert_ffn``; dispatch/combine every kernel inside route,
+    dispatch, gather_tokens and combine; attention the flash kernel;
+    elementwise, copies, reductions and the other GEMMs (projections,
+    shared expert, head) outside those."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+    saved = {name: getattr(moe, name) for name in MOE_STEPS}
+
+    def ranged(name, f):
+        def run(*args, **kw):
+            with record_function(f"moe.{name}"):
+                return f(*args, **kw)
+        return run
+    for name, f in saved.items():
+        setattr(moe, name, ranged(name, f))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_ms, _ = sync_ms(fn)
+    finally:
+        for name, f in saved.items():
+            setattr(moe, name, f)
+    groups = {}
+    total = 0.0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        rng, up = None, evt
+        while up is not None and rng is None:
+            if up.name.startswith("moe."):
+                rng = up.name[4:]
+            up = up.cpu_parent
+        for kern in evt.kernels:
+            kind = next((g for g, pat in KERNEL_GROUPS
+                         if re.search(pat, kern.name, re.IGNORECASE)),
+                        "other")
+            if kind == "flash_attention":
+                group = "attention (flash_attention)"
+            elif rng == "expert_ffn":
+                group = ("expert GEMMs" if kind == "GEMM"
+                         else "expert SwiGLU elementwise")
+            elif rng is not None:
+                group = "dispatch/combine"
+            else:
+                group = {"GEMM": "other GEMMs (projections, shared "
+                                 "expert, router, head)"}.get(kind, kind)
+            groups[group] = groups.get(group, 0.0) + kern.duration
+            total += kern.duration
+    return dict(wall_ms=wall_ms, device_ms=total / 1e3,
+                busy_share=total / 1e3 / wall_ms,
+                groups_ms={g: us / 1e3 for g, us in sorted(
+                    groups.items(), key=lambda kv: -kv[1])})
+
+
+def moe_layer_twin(cfg, params):
+    """Mixtral's first layer at full width (attention + MoE, bf16) on the
+    card and on the CPU from one seeded input [B, S, D]."""
+    from repro_torch.core.api import tree_map
+    from repro_torch.models import blocks
+    b, s = MOE_LAYER_TWIN
+    gen = torch.Generator().manual_seed(FAMILY_SEED)
+    h = torch.randn((b, s, cfg.d_model), generator=gen).to(torch.bfloat16)
+    card_p = params["layers"][0]["blk"]
+    cpu_p = tree_map(lambda x: x.cpu(), card_p)
+    ctx = blocks.Ctx(cfg=cfg, mode="prefill", block_q=128, block_k=128)
+    return layer_pair(f"{cfg.name} layer 0", cfg, card_p, cpu_p, h, ctx,
+                      cfg.window)
+
+
+def phase_lm_families(report):
+    """The moe, vlm and audio families and the int8 KV cache on the card
+    at full width, through the port's serving entry points: mixtral
+    (4 layers) and llama4-scout (4 layers, bf16 and int8 caches) and
+    musicgen (all 48) through ``BatchedServer``; internvl2 (4 layers)
+    through the launcher's path with its vision input; mixtral's prefill
+    profiled by group; ``flash_attention`` timed at mixtral's and
+    llama4's live prefill shapes; the four families' smoke configurations
+    and mixtral's first layer card against CPU."""
+    from repro_torch import configs
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model, moe
+    from repro_torch.serve import auto_kv_quant, make_prefill_step
+    t0 = time.perf_counter()
+    out = {"serve": {}, "attention": {}}
+    attention = []
+    for arch, layers, slots, plen, new, quants in FAMILY_SERVE:
+        t_arch = time.perf_counter()
+        torch.cuda.empty_cache()
+        full = configs.get(arch)
+        cfg = cut(full, layers)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(FAMILY_SEED)
+        params = model.init(cfg, gen, DEV)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        check(n_params == cfg.param_count(), f"{arch}: {n_params} "
+                                             f"parameters, declared "
+                                             f"{cfg.param_count()}")
+        print(f"phase 27: {arch}: {cfg.n_layers} of {full.n_layers} layers "
+              f"at full width, {n_params / 1e9:.3f} B parameters "
+              f"({n_params * 2 / 1e9:.1f} GB bf16, "
+              f"{n_params * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms at HBM rate; "
+              f"the full model {full.param_count() / 1e9:.1f} B)",
+              flush=True)
+        rng = np.random.RandomState(FAMILY_SEED)
+        prompts = rng.randint(0, cfg.vocab, (slots, plen) + (
+            (cfg.n_codebooks,) if cfg.n_codebooks else ())).astype(np.int32)
+        runs = {}
+        for kv_quant in quants:
+            live = {} if not kv_quant else None
+            r = serve_run(report, cfg, params, prompts, new, kv_quant, live)
+            runs[kv_quant] = r
+            held = ("; every flash_attention launch of the first prefill "
+                    "within tolerance of its plain version on its live "
+                    "inputs" if live is not None else "")
+            print(f"phase 27: "
+                  f"{serve_text(arch, kv_quant, r, slots, plen, new)}{held}",
+                  flush=True)
+            if live is not None and cfg.moe is not None:
+                q, k, v, o, window, softcap, qs = live["flash_attention"]
+                t = time_attention(
+                    report, arch, q, k, v, o, window, softcap, qs,
+                    inputs="live: the first layer of the first admission's "
+                           "prefill")
+                attention.append(t)
+                out["attention"][arch] = t
+                print(f"phase 27: flash_attention at {arch}'s prefill (B="
+                      f"{q.shape[0]} S={q.shape[1]} H={q.shape[2]} G="
+                      f"{k.shape[2]} hd={q.shape[3]}, window {window}, "
+                      f"bf16): {timing_text(t)}", flush=True)
+                del q, k, v, o
+            live = None
+        if len(runs) == 2:
+            same = sum(a == b for x, y in zip(runs[False]["tokens"],
+                                             runs[True]["tokens"])
+                       for a, b in zip(x, y))
+            int8, bf16 = (runs[q]["cache_bytes"] for q in (True, False))
+            memory = torch.cuda.get_device_properties(DEV).total_memory
+            print(f"phase 27: {arch}: the int8 cache {int8 / 1e6:.1f} MB "
+                  f"against the bf16 cache's {bf16 / 1e6:.1f} MB "
+                  f"({int8 / bf16:.3f}); {same} of {slots * new} emitted "
+                  f"tokens the same in both; auto_kv_quant at the full "
+                  f"model, 128 x 32768 on one card of "
+                  f"{memory / 2 ** 30:.1f} GiB: "
+                  f"{auto_kv_quant(full, 128, 32768, 1, memory)}",
+                  flush=True)
+        if arch == "mixtral-8x22b":
+            toks = torch.from_numpy(prompts[:1]).to(DEV)
+            prefill = make_prefill_step(cfg, 128, 128)
+            prof = moe_profile(lambda: prefill(params, toks)[0])
+            out["mixtral_prefill_profile"] = prof
+            # The expert GEMMs' work: 3 GEMMs of [E * C, D] x [D, F] a layer.
+            m = cfg.moe
+            flops = (6 * m.num_experts * moe.capacity(plen, m) * cfg.d_model
+                     * m.d_ff * cfg.n_layers)
+            rate = flops / (prof["groups_ms"].get("expert GEMMs", 0.0)
+                            or float("inf")) / 1e9
+            print(f"phase 27: {arch} prefill (B=1, S={plen}) profiled: "
+                  f"wall {prof['wall_ms']:.1f} ms, device "
+                  f"{prof['device_ms']:.1f} ms (busy "
+                  f"{prof['busy_share']:.2f}): " + ", ".join(
+                      f"{g} {ms:.2f}" for g, ms in
+                      prof["groups_ms"].items()) + f" ms; the expert GEMMs "
+                  f"{flops / 1e12:.1f} TFLOP at capacity "
+                  f"{moe.capacity(plen, m)}, {rate:.0f} TFLOP/s "
+                  f"({rate * 1e12 / PEAK_FLOPS[torch.bfloat16]:.2f} of the "
+                  f"bf16 peak)", flush=True)
+            t_layer = time.perf_counter()
+            err, ties = moe_layer_twin(cfg, params)
+            out["mixtral_layer_twin"] = dict(max_abs_err=err, near_ties=ties)
+            b, s = MOE_LAYER_TWIN
+            print(f"phase 27: {arch} layer 0 at full width (B={b}, S={s}), "
+                  f"one input on both sides: routing equal outside {ties} "
+                  f"near-tie token(s), output card against CPU max abs err "
+                  f"{err:.4g} within {LM_TOL} on the rest "
+                  f"({time.perf_counter() - t_layer:.1f} s)", flush=True)
+        out["serve"][arch] = {str(k): {kk: vv for kk, vv in r.items()
+                                       if kk != "tokens"}
+                              for k, r in runs.items()}
+        out["serve"][arch]["seconds"] = time.perf_counter() - t_arch
+        print(f"phase 27: {arch}: {time.perf_counter() - t_arch:.1f} s",
+              flush=True)
+        del params
+    # The launcher's path: internvl2 with its vision input.
+    arch, layers, b, plen, steps = FAMILY_LAUNCHER
+    t_arch = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cut(configs.get(arch), layers)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(FAMILY_SEED)
+    params = model.init(cfg, gen, DEV)
+    prompts, vision = launch_serve.inputs(cfg, b, plen, DEV)
+    _build.reset_launches()
+    r = launch_serve.serve(cfg, params, prompts, steps, vision)
+    report["launches"]["flash_attention"] += _build.LAUNCHES[
+        "flash_attention"]
+    check(_build.LAUNCHES["flash_attention"] == cfg.n_layers
+          and _build.LAUNCHES["ssd_scan"] == 0,
+          f"{arch}: launches {dict(_build.LAUNCHES)}, expected "
+          f"{cfg.n_layers} flash_attention (prefill), none in decode")
+    check(tuple(r["tokens"].shape) == (b, steps)
+          and bool(((r["tokens"] >= 0) & (r["tokens"] < cfg.vocab)).all()),
+          f"{arch}: tokens {tuple(r['tokens'].shape)}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["launcher"] = dict(arch=arch, layers=layers, B=b, S=plen,
+                           steps=steps, prefill_s=r["prefill_s"],
+                           decode_s=r["decode_s"], peak_gib=peak,
+                           prefill_tokens_per_s=b * plen / r["prefill_s"],
+                           decode_tokens_per_s=b * steps / r["decode_s"])
+    print(f"phase 27: {arch} ({layers} of {configs.get(arch).n_layers} "
+          f"layers, full width) through the launcher's path, B={b}, "
+          f"{plen} tokens with {cfg.vision_tokens} vision embeddings: "
+          f"{cfg.n_layers} flash_attention launches in the prefill, none in "
+          f"{steps} decode steps; prefill {r['prefill_s'] * 1e3:.1f} ms "
+          f"({b * plen / r['prefill_s']:.0f} tokens/s), decode "
+          f"{r['decode_s'] / steps * 1e3:.2f} ms a step "
+          f"({b * steps / r['decode_s']:.1f} tokens/s); peak memory "
+          f"{peak:.2f} GiB ({time.perf_counter() - t_arch:.1f} s)",
+          flush=True)
+    del params, prompts, vision
+    torch.cuda.empty_cache()
+    # The smoke configurations, card against CPU.
+    out["twins"] = {}
+    for arch in ("mixtral-8x22b", "llama4-scout-17b-a16e", "internvl2-76b",
+                 "musicgen-large"):
+        t_twin = time.perf_counter()
+        text = family_twin(arch)
+        out["twins"][arch] = text
+        print(f"phase 27: {arch} smoke (bf16, hd 16 through the flash "
+              f"kernel padded to 64), B={FAMILY_TWIN[0]} S={FAMILY_TWIN[1]}, "
+              f"{FAMILY_TWIN[2]} decode steps, card against CPU: {text} "
+              f"({time.perf_counter() - t_twin:.1f} s)", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 27: {out['seconds']:.1f} s on {report['card']}",
+          flush=True)
+    report["lm_families"] = out
+    return attention
+
+
 # -- driver -----------------------------------------------------------------
 
 def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
@@ -3306,6 +3849,7 @@ def main(argv=None) -> int:
     check_twin(report, twin_result)
     run(25, phase_sync_audit, report, cell60_lanes, mesh60)
     lm_attention, lm_ssd = run(26, phase_lm_serving, report)
+    family_attention = run(27, phase_lm_families, report)
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small, *wide]),
         kernel_entry("stacked_count_stats", report, service,
@@ -3314,7 +3858,7 @@ def main(argv=None) -> int:
         kernel_entry("masked_row_reduce", report, row_reduce["or"],
                      [row_reduce["or"], row_reduce["and"]]),
         kernel_entry("flash_attention", report, lm_attention,
-                     [lm_attention, *attention],
+                     [lm_attention, *family_attention, *attention],
                      "allclose rtol = atol = 2e-2 (bf16), 2e-5 (f32); "
                      "normalised error <= 5e-3 (bf16), 2e-5 (f32)"),
         kernel_entry("ssd_scan", report, lm_ssd, [lm_ssd, ssd],

@@ -121,6 +121,9 @@ class BinaryProblem:
         lane's own instance, batched, for K > 1 problems: CONVERTINDEX
         replay of a stolen task must start from the root of the task's
         instance.  ``None`` means ``root()`` serves every instance.
+      payload_dtype: the numpy dtype a checkpoint writes the payload
+        leaves in, the reference's: ``uint32`` for a bitset (the port's
+        int32 words hold its bits), ``int32`` for an int32 payload.
     """
 
     name: str
@@ -130,6 +133,7 @@ class BinaryProblem:
     payload_zero: Callable[[], PyTree]
     num_instances: int = 1
     instance_root: Optional[Callable[[torch.Tensor], PyTree]] = None
+    payload_dtype: str = "uint32"
 
     def apply(self, states: PyTree, bit: torch.Tensor) -> PyTree:
         """Descend every lane to its left (0) or right (1) child."""

@@ -13,9 +13,11 @@
   round boundaries.
 
 The file has the reference's keys and dtypes, so a checkpoint crosses
-between the two packages in either direction: the port's int32 bitsets
-(``payload_i``) are written as ``uint32`` with the same bits and read
-back the same way.
+between the two packages in either direction: each payload leaf
+(``payload_i``) is written in the dtype the problem declares
+(``BinaryProblem.payload_dtype``: ``uint32`` with the same bits for the
+port's int32 bitsets, ``int32`` for subset sum's mask) and read back
+bit for bit from either.
 """
 
 from __future__ import annotations
@@ -42,10 +44,13 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def save(path: str, lanes: Lanes,
-         extra: Optional[Dict[str, np.ndarray]] = None) -> None:
+         extra: Optional[Dict[str, np.ndarray]] = None,
+         payload_dtype: str = "uint32") -> None:
     """Atomically persist lane control state and incumbents (not the
     stacks).  ``extra`` arrays are stored under an ``extra_`` prefix and
-    returned by :func:`read_extra`."""
+    returned by :func:`read_extra`.  ``payload_dtype`` is the problem's
+    ``BinaryProblem.payload_dtype``: the payload leaves' int32 words are
+    written as that dtype, bit for bit."""
     arrays = {
         "idx": _host(lanes.idx).astype(np.int8),
         "depth": _host(lanes.depth).astype(np.int32),
@@ -60,10 +65,8 @@ def save(path: str, lanes: Lanes,
         "t_c": _host(lanes.t_c).astype(np.int32),
         "steps": _host(lanes.steps).astype(np.int32),
     }
-    # Every payload of the port is a bitset: int32 words holding the
-    # reference's uint32 bits.
     for i, leaf in enumerate(tree_leaves(lanes.best_payload)):
-        arrays[f"payload_{i}"] = _host(leaf).view(np.uint32)
+        arrays[f"payload_{i}"] = _host(leaf).view(np.dtype(payload_dtype))
     for key, val in (extra or {}).items():
         arrays[_EXTRA_PREFIX + key] = np.asarray(val)
     buf = io.BytesIO()
@@ -183,6 +186,7 @@ def restore(path: str, problem: BinaryProblem, num_lanes: int
             f"checkpoint has {best.shape[0]} instance slots, problem has "
             f"{problem.num_instances}; elastic restore varies LANES, not K")
     dev = lanes.idx.device
+    # uint32 (bitsets) or int32 (subset sum): the same 32 bits either way.
     payload = (_unflatten(lanes.best_payload, [
         torch.from_numpy(np.ascontiguousarray(p).view(np.int32).copy()
                          ).to(dev) for p in payload_leaves])

@@ -6,7 +6,11 @@ tensors it launches a hand-written Hopper kernel of
 version, ``models.attention.blocked_attention``.  There is no fallback
 from one to the other.  On the card the dtype picks the kernel: bfloat16
 runs the ``wgmma`` + TMA kernel, float32 the CUDA-core kernel.  Both take
-any S (a ragged last tile is masked) and the head dims of ``HEAD_DIMS``.
+any S (a ragged last tile is masked) and are built for the head dims of
+``HEAD_DIMS``; the wrapper takes every head dim up to the largest of them
+by zero-padding q, k and v along hd to the next built one (zero columns
+change neither q . k nor the kept columns of p . v) and slicing the
+output back, the scale still 1/sqrt of the true hd.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 from repro_torch.kernels import _build, ref
 
 #: Head dims the CUDA kernel is built for: those of the repo's model
-#: configurations (src/repro/configs).
+#: configurations (src/repro/configs).  Smaller head dims are padded up to
+#: the next one; more than the last is refused.
 HEAD_DIMS = (64, 80, 128)
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -67,18 +72,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for {q.device}")
     b, s, h, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, "
-                         f"got {hd}")
+    if hd > HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention kernel takes hd <= "
+                         f"{HEAD_DIMS[-1]} (built for {HEAD_DIMS}), got {hd}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention kernel takes window >= 1 or "
                          f"None, got {window}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
     scale = query_scale if query_scale is not None else 1.0 / math.sqrt(hd)
+    built = next(d for d in HEAD_DIMS if d >= hd)
+    if built != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, built - hd))
+                   for t in (q, k, v))
+    q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
     _build.launch("flash_attention", _ARGTYPES,
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   b, s, h, k.shape[2], hd, window or 0,
+                   b, s, h, k.shape[2], built, window or 0,
                    int(q.dtype == torch.bfloat16), float(softcap),
                    float(scale)], q.device)
-    return out
+    return out if built == hd else out[..., :hd]

@@ -10,8 +10,10 @@ arithmetic: f32 scores from the inputs' own values, masked scores set to
 quirk of the flash convention), ``l`` clamped at 1e-30.  Unlike the
 reference's nested scans, the query blocks run side by side: each query
 row sees the same KV blocks in the same order, so its arithmetic is the
-same.  The int8 KV cache (``quantize_kv``, ``decode_attention_quant``)
-is not ported yet.
+same.  The int8 KV cache: ``quantize_kv`` (per-(token, head) absmax
+scales) and ``decode_attention_quant`` (one token against it, dequantized
+block by block under an online softmax, over a block count fixed by the
+cache's shape).
 """
 
 from __future__ import annotations
@@ -179,4 +181,76 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bgrqd", p.to(q.dtype).float(),
                        v_cache.to(q.dtype).float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8-quantized KV cache (serving): per-(token, head) absmax scales.
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x: torch.Tensor):
+    """x: [..., hd] -> (int8 [..., hd], float32 [..., 1] scale); round
+    half to even, as the reference."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q8 = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q8.to(torch.int8), scale
+
+
+def decode_attention_quant(q: torch.Tensor, k8: torch.Tensor,
+                           v8: torch.Tensor, ks: torch.Tensor,
+                           vs: torch.Tensor, pos: int, *,
+                           window: Optional[int] = None,
+                           softcap: float = 0.0,
+                           query_scale: Optional[float] = None,
+                           k_positions: Optional[torch.Tensor] = None,
+                           block: int = 2048) -> torch.Tensor:
+    """One-token attention over an int8 cache, dequantized block by block
+    (k8 * ks and v8 * vs rounded to bfloat16, as the reference) with an
+    online softmax, so no full-cache copy is made.  q: [B, 1, H, hd];
+    k8, v8: [B, S, G, hd] int8; ks, vs: [B, S, G, 1] float32; ``pos`` and
+    ``k_positions`` as in :func:`decode_attention`.  The block count is
+    ceil(S / block): fixed by the shapes, no host sync."""
+    b, _, h, hd = q.shape
+    s, g = k8.shape[1], k8.shape[2]
+    r = h // g
+    scale = query_scale if query_scale is not None else 1.0 / math.sqrt(hd)
+    block = min(block, s)
+    nb = -(-s // block)
+    pad = nb * block - s
+    kpos = (torch.arange(s, device=q.device) if k_positions is None
+            else k_positions)
+    if pad:
+        k8, v8, ks, vs = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                          for x in (k8, v8, ks, vs))
+        kpos = torch.nn.functional.pad(kpos, (0, pad), value=-1)
+    qh = q.reshape(b, 1, g, r, hd).float()          # exact widening
+    bf16 = torch.bfloat16
+    m = torch.full((b, g, r, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((b, g, r, 1, hd), dtype=torch.float32, device=q.device)
+    for j in range(nb):
+        blk = slice(j * block, (j + 1) * block)
+        kb = k8[:, blk].to(bf16) * ks[:, blk].to(bf16)     # [B, blk, G, hd]
+        sc = torch.einsum("bqgrd,bkgd->bgrqk", qh, kb.float()) * scale
+        if softcap > 0.0:
+            sc = softcap * torch.tanh(sc / softcap)
+        kp = kpos[blk]
+        ok = (kp <= pos) & (kp >= 0)
+        if window is not None:
+            ok &= (pos - kp) < window
+        sc = torch.where(ok, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        vb = v8[:, blk].to(bf16) * vs[:, blk].to(bf16)
+        pv = torch.einsum("bgrqk,bkgd->bgrqd", p.to(bf16).float(),
+                          vb.float())
+        o = o * alpha[..., None] + pv
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, h, hd).to(q.dtype)

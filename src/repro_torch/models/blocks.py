@@ -1,7 +1,8 @@
 """Layer blocks of the families the port serves (counterpart of
-``repro.models.blocks``): the transformer layer (dense, gemma2's
-local/global pairs, zamba2's shared block) and the Mamba-2 layer (ssm and
-the hybrid backbone).  MoE, vision and audio are not ported yet.
+``repro.models.blocks``): the transformer layer (dense, moe, vlm, audio,
+gemma2's local/global pairs, zamba2's shared block; its FFN an MLP or the
+MoE of ``models.moe``) and the Mamba-2 layer (ssm and the hybrid
+backbone).
 
 Each block runs in one of three modes:
   train / prefill : the full sequence; attention through the
@@ -9,10 +10,11 @@ Each block runs in one of three modes:
                     ``ssd_scan`` kernel (each on CUDA tensors; their plain
                     versions on CPU tensors); prefill also returns the
                     block's cache entries;
-  decode          : one token against a cache (KV, rolling-window KV, or
-                    SSM state + conv tail), plain PyTorch.  The cache
-                    tensors passed in are written in place: the slot's K/V
-                    row, the new state and the new conv tail.
+  decode          : one token against a cache (KV, rolling-window KV,
+                    the int8 KV cache with its scales, or SSM state + conv
+                    tail), plain PyTorch.  The cache tensors passed in are
+                    written in place: the slot's K/V row (and scales), the
+                    new state and the new conv tail.
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.models import ssm
 from repro_torch.models.attention import (apply_rope, decode_attention,
-                                          rope_tables)
+                                          decode_attention_quant,
+                                          quantize_kv, rope_tables)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (apply_mlp, attn_decls, mlp_decls,
                                        norm_decl, rmsnorm)
+from repro_torch.models.moe import moe_decls, moe_ffn
 from repro_torch.models.params import ParamDecl
 
 Cache = Dict[str, torch.Tensor]
@@ -46,6 +50,7 @@ class Ctx:
     pos: int = 0                # decode: the new token's position
     block_q: int = 256
     block_k: int = 256
+    kv_quant: bool = False      # the int8 KV cache (serving)
 
     @property
     def decode(self) -> bool:
@@ -53,7 +58,8 @@ class Ctx:
 
 
 # ---------------------------------------------------------------------------
-# Attention sublayer (dense / gemma2 / zamba2's shared block).
+# Attention sublayer (dense / moe / vlm / audio / gemma2 / zamba2's shared
+# block).
 # ---------------------------------------------------------------------------
 
 
@@ -61,9 +67,10 @@ def attention_sublayer(p: Dict[str, torch.Tensor], h: torch.Tensor,
                        ctx: Ctx, window: Optional[int],
                        cache: Optional[Cache] = None
                        ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """h -> (attn_out, cache).  Cache: {"k", "v"} [B, Sc, G, hd]; slot
-    ``pos % Sc`` holds position pos (the rolling layout when Sc is less
-    than the sequence)."""
+    """h -> (attn_out, cache).  Cache: {"k", "v"} [B, Sc, G, hd], with
+    ``ctx.kv_quant`` int8 and their float32 scales {"ks", "vs"} [B, Sc,
+    G, 1]; slot ``pos % Sc`` holds position pos (the rolling layout when
+    Sc is less than the sequence)."""
     cfg = ctx.cfg
     b, s, _ = h.shape
     hn, g, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -93,17 +100,26 @@ def attention_sublayer(p: Dict[str, torch.Tensor], h: torch.Tensor,
     if ctx.decode:
         sc = cache["k"].shape[1]
         slot = ctx.pos % sc
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
         # Rolling layout: slot i holds position pos - ((pos - i) mod Sc).
         # For a full-length cache (pos < Sc) that is i for i <= pos and a
         # negative (masked) value for the slots not written yet.
         idx = torch.arange(sc, device=h.device)
         kpos = ctx.pos - ((ctx.pos - idx) % sc)
-        attn = decode_attention(q, cache["k"], cache["v"], ctx.pos,
-                                window=window, softcap=cfg.attn_softcap,
-                                query_scale=cfg.query_scale,
-                                k_positions=kpos)
+        kw = dict(window=window, softcap=cfg.attn_softcap,
+                  query_scale=cfg.query_scale, k_positions=kpos)
+        if ctx.kv_quant:
+            for name, x in (("k", k), ("v", v)):
+                x8, xs = quantize_kv(x[:, 0])
+                cache[name][:, slot] = x8
+                cache[name + "s"][:, slot] = xs
+            attn = decode_attention_quant(q, cache["k"], cache["v"],
+                                          cache["ks"], cache["vs"],
+                                          ctx.pos, **kw)
+        else:
+            cache["k"][:, slot] = k[:, 0]
+            cache["v"][:, slot] = v[:, 0]
+            attn = decode_attention(q, cache["k"], cache["v"], ctx.pos,
+                                    **kw)
         new_cache = cache
     else:
         attn = _flash.flash_attention(
@@ -113,13 +129,18 @@ def attention_sublayer(p: Dict[str, torch.Tensor], h: torch.Tensor,
         if ctx.mode == "prefill":
             keep = window if (window is not None and window < s) else s
             new_cache = {"k": k[:, -keep:], "v": v[:, -keep:]}
+            if ctx.kv_quant:
+                (k8, ks), (v8, vs) = (quantize_kv(new_cache[name])
+                                      for name in ("k", "v"))
+                new_cache = {"k": k8, "v": v8, "ks": ks, "vs": vs}
 
     out = attn.reshape(b, s, hn * hd) @ p["wo"]
     return out, new_cache
 
 
 # ---------------------------------------------------------------------------
-# Transformer layer (attention + MLP): dense, gemma2, zamba2's shared block.
+# Transformer layer (attention + MLP or MoE): dense, moe, vlm, audio,
+# gemma2, zamba2's shared block.
 # ---------------------------------------------------------------------------
 
 
@@ -128,7 +149,7 @@ def _zero_norm(d: int) -> ParamDecl:
     return ParamDecl((d,), init="zeros")
 
 
-def transformer_decls(cfg: ArchConfig) -> Dict[str, Any]:
+def transformer_decls(cfg: ArchConfig, use_moe: bool) -> Dict[str, Any]:
     d = cfg.d_model
     gstyle = cfg.post_norms
     norm = _zero_norm if gstyle else norm_decl
@@ -137,7 +158,10 @@ def transformer_decls(cfg: ArchConfig) -> Dict[str, Any]:
     if gstyle:
         decls["ln1_post"] = _zero_norm(d)
         decls["ln2_post"] = _zero_norm(d)
-    decls["mlp"] = mlp_decls(d, cfg.d_ff, cfg.mlp_gated)
+    if use_moe:
+        decls["moe"] = moe_decls(d, cfg.moe)
+    else:
+        decls["mlp"] = mlp_decls(d, cfg.d_ff, cfg.mlp_gated)
     return decls
 
 
@@ -154,7 +178,11 @@ def apply_transformer_layer(p: Dict[str, Any], h: torch.Tensor, ctx: Ctx,
     h = h + attn
 
     hn = rmsnorm(h, p["ln2"], cfg.norm_eps, gemma_style=gstyle)
-    ff = apply_mlp(p["mlp"], hn, cfg.mlp_gated)
+    if "moe" in p:
+        b, s, d = hn.shape
+        ff = moe_ffn(hn.reshape(b * s, d), p["moe"], cfg.moe).reshape(b, s, d)
+    else:
+        ff = apply_mlp(p["mlp"], hn, cfg.mlp_gated)
     if gstyle:
         ff = rmsnorm(ff, p["ln2_post"], cfg.norm_eps, gemma_style=True)
     return h + ff, new_cache

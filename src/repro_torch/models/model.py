@@ -1,10 +1,11 @@
 """Model assembly: parameters, forward, prefill and decode (counterpart of
-``repro.models.model``) for the dense, ssm and hybrid families.
+``repro.models.model``) for every family: dense, moe, vlm, audio, ssm
+and hybrid.
 
 The reference scans over *layer groups* with stacked parameters; here the
 groups are a Python loop over a list, one parameter dict per group:
 
-  dense              group = {"blk": layer}                  n_groups = L
+  dense/moe/vlm/audio group = {"blk": layer}                 n_groups = L
   gemma2             group = {"sub0": local, "sub1": global} L / 2
   ssm                group = {"blk": mamba}                  L
   hybrid (zamba2)    group = {"mamba": [P mamba layers]}, and one shared
@@ -18,7 +19,14 @@ carries the reference's parameters across).  The cache keeps the
 reference's layout, each leaf stacked over the groups (``[n_groups, B,
 ...]``; the hybrid's mamba leaves ``[n_groups, hybrid_period, B, ...]``),
 and a decode step writes it in place.  Sliding-window sites allocate
-min(S, window) slots (the rolling layout).
+min(S, window) slots (the rolling layout); the int8 KV cache (``quant``)
+holds int8 k / v and their float32 per-(token, head) scales ks / vs at
+every KV site.
+
+The audio family (musicgen) takes tokens [B, S, CB]: the codebooks'
+embeddings summed, and one head per codebook (logits [B, S, CB, V]).
+The vlm family (internvl2) takes ``vision`` [B, V, D] embeddings at
+prefill, in place of the first V positions; decode takes none.
 """
 
 from __future__ import annotations
@@ -38,18 +46,16 @@ from repro_torch.models.params import ParamDecl, init_params
 
 PyTree = Any
 
-#: The families this slice of the port runs.
-FAMILIES = ("dense", "ssm", "hybrid")
+#: The families the port runs: all of the reference's.
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run
-    yet (moe, vlm, audio)."""
-    if cfg.family not in FAMILIES or cfg.moe is not None:
+    """Raise ``NotImplementedError`` for a family the port does not run."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item 11); the port runs "
-            f"{', '.join(FAMILIES)}")
+            f"{cfg.name}: the {cfg.family!r} family is not one the port "
+            f"runs ({', '.join(FAMILIES)})")
 
 
 # ---------------------------------------------------------------------------
@@ -72,23 +78,29 @@ def group_decls(cfg: ArchConfig) -> Dict[str, Any]:
     if cfg.family == "hybrid":
         return {"mamba": [blocks.mamba_decls(cfg)
                           for _ in range(cfg.hybrid_period)]}
+    use_moe = cfg.moe is not None
     if cfg.local_global_period == 2:
-        return {"sub0": blocks.transformer_decls(cfg),
-                "sub1": blocks.transformer_decls(cfg)}
-    return {"blk": blocks.transformer_decls(cfg)}
+        return {"sub0": blocks.transformer_decls(cfg, use_moe),
+                "sub1": blocks.transformer_decls(cfg, use_moe)}
+    return {"blk": blocks.transformer_decls(cfg, use_moe)}
 
 
 def param_decls(cfg: ArchConfig) -> Dict[str, Any]:
     check_family(cfg)
     d = cfg.d_model
-    decls: Dict[str, Any] = {"embed": ParamDecl((cfg.vocab, d))}
-    if not cfg.tie_embeddings:
-        decls["lm_head"] = ParamDecl((d, cfg.vocab))
+    decls: Dict[str, Any] = {}
+    if cfg.n_codebooks:
+        decls["embed"] = ParamDecl((cfg.n_codebooks, cfg.vocab, d))
+        decls["out_heads"] = ParamDecl((cfg.n_codebooks, d, cfg.vocab))
+    else:
+        decls["embed"] = ParamDecl((cfg.vocab, d))
+        if not cfg.tie_embeddings:
+            decls["lm_head"] = ParamDecl((d, cfg.vocab))
     decls["final_norm"] = (ParamDecl((d,), init="zeros") if cfg.post_norms
                            else norm_decl(d))
     decls["layers"] = [group_decls(cfg) for _ in range(n_groups(cfg))]
     if cfg.family == "hybrid":
-        decls["shared"] = blocks.transformer_decls(cfg)
+        decls["shared"] = blocks.transformer_decls(cfg, use_moe=False)
     return decls
 
 
@@ -103,9 +115,22 @@ def init(cfg: ArchConfig, gen: torch.Generator, device) -> PyTree:
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ArchConfig, params: PyTree,
-           tokens: torch.Tensor) -> torch.Tensor:
-    h = F.embedding(tokens, params["embed"])
+def _embed(cfg: ArchConfig, params: PyTree, tokens: torch.Tensor,
+           vision: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings [B, S, D]: audio's [B, S, CB] tokens summed over
+    the codebooks in order from a bfloat16 zero (the reference's, so a
+    float32 model promotes as its does); ``vision`` [B, V, D] (vlm,
+    prefill) in place of the first V positions, before the scale."""
+    if cfg.n_codebooks:
+        h = torch.zeros(tokens.shape[:2] + (cfg.d_model,),
+                        dtype=torch.bfloat16, device=tokens.device)
+        for cb in range(cfg.n_codebooks):
+            h = h + F.embedding(tokens[..., cb], params["embed"][cb])
+    else:
+        h = F.embedding(tokens, params["embed"])
+    if cfg.vision_tokens and vision is not None:
+        v = vision.to(h.dtype)
+        h = torch.cat([v, h[:, v.shape[1]:, :]], dim=1)
     if cfg.embed_scale:
         # The scale in the activations' dtype first, as the reference's.
         h = h * torch.full((), math.sqrt(cfg.d_model), dtype=h.dtype,
@@ -179,7 +204,9 @@ def logits_fn(cfg: ArchConfig, params: PyTree,
               h: torch.Tensor) -> torch.Tensor:
     hn = rmsnorm(h, params["final_norm"], cfg.norm_eps,
                  gemma_style=cfg.post_norms)
-    if cfg.tie_embeddings:
+    if cfg.n_codebooks:
+        logits = torch.einsum("bsd,cdv->bscv", hn, params["out_heads"])
+    elif cfg.tie_embeddings:
         logits = hn @ params["embed"].T
     else:
         logits = hn @ params["lm_head"]
@@ -191,16 +218,18 @@ def logits_fn(cfg: ArchConfig, params: PyTree,
 
 
 def make_ctx(cfg: ArchConfig, mode: str, pos: int = 0,
-             block_q: int = 256, block_k: int = 256) -> Ctx:
+             block_q: int = 256, block_k: int = 256,
+             kv_quant: bool = False) -> Ctx:
     check_family(cfg)
     return Ctx(cfg=cfg, mode=mode, pos=pos, block_q=block_q,
-               block_k=block_k)
+               block_k=block_k, kv_quant=kv_quant)
 
 
 def forward(cfg: ArchConfig, params: PyTree, tokens: torch.Tensor,
-            ctx: Ctx) -> torch.Tensor:
-    """Logits [B, S, V] of every position."""
-    h = _embed(cfg, params, tokens)
+            ctx: Ctx, vision: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """Logits [B, S, V] (audio: [B, S, CB, V]) of every position."""
+    h = _embed(cfg, params, tokens, vision)
     h, _ = run_layers(cfg, params, h, ctx)
     return logits_fn(cfg, params, h)
 
@@ -211,16 +240,22 @@ def forward(cfg: ArchConfig, params: PyTree, tokens: torch.Tensor,
 
 
 def _kv_site(cfg: ArchConfig, g: int, batch: int, seq: int,
-             window: Optional[int], dtype) -> Dict[str, Tuple]:
+             window: Optional[int], dtype, quant: bool) -> Dict[str, Tuple]:
     keep = min(seq, window) if window else seq
-    kv = ((g, batch, keep, cfg.n_kv, cfg.head_dim), dtype)
+    lead = (g, batch, keep, cfg.n_kv)
+    if quant:
+        kv = (lead + (cfg.head_dim,), torch.int8)
+        scale = (lead + (1,), torch.float32)
+        return {"k": kv, "v": kv, "ks": scale, "vs": scale}
+    kv = (lead + (cfg.head_dim,), dtype)
     return {"k": kv, "v": kv}
 
 
 def cache_struct(cfg: ArchConfig, batch: int, seq: int,
-                 dtype=torch.bfloat16) -> PyTree:
+                 dtype=torch.bfloat16, quant: bool = False) -> PyTree:
     """(shape, dtype) of each cache leaf (leading dim: the groups), as
-    the reference's ``cache_struct`` less the int8 KV cache."""
+    the reference's ``cache_struct``.  ``quant``: every KV site int8 with
+    float32 per-(token, head) scales ``ks`` / ``vs``."""
     check_family(cfg)
     g = n_groups(cfg)
     if cfg.family in ("ssm", "hybrid"):
@@ -232,17 +267,19 @@ def cache_struct(cfg: ArchConfig, batch: int, seq: int,
                  "conv": (lead + (batch, s.d_conv - 1, conv_dim), dtype)}
         if cfg.family == "ssm":
             return {"blk": mamba}
-        return {"shared": _kv_site(cfg, g, batch, seq, None, dtype),
+        return {"shared": _kv_site(cfg, g, batch, seq, None, dtype, quant),
                 "mamba": mamba}
     if cfg.local_global_period == 2:
-        return {"sub0": _kv_site(cfg, g, batch, seq, cfg.window, dtype),
-                "sub1": _kv_site(cfg, g, batch, seq, None, dtype)}
-    return {"blk": _kv_site(cfg, g, batch, seq, cfg.window, dtype)}
+        return {"sub0": _kv_site(cfg, g, batch, seq, cfg.window, dtype,
+                                 quant),
+                "sub1": _kv_site(cfg, g, batch, seq, None, dtype, quant)}
+    return {"blk": _kv_site(cfg, g, batch, seq, cfg.window, dtype, quant)}
 
 
 def cache_init(cfg: ArchConfig, batch: int, seq: int,
-               dtype=torch.bfloat16, device="cpu") -> PyTree:
-    struct = cache_struct(cfg, batch, seq, dtype)
+               dtype=torch.bfloat16, device="cpu",
+               quant: bool = False) -> PyTree:
+    struct = cache_struct(cfg, batch, seq, dtype, quant)
     return {site: {name: torch.zeros(shape, dtype=dt, device=device)
                    for name, (shape, dt) in leaves.items()}
             for site, leaves in struct.items()}
@@ -256,7 +293,8 @@ def batch_axis(cfg: ArchConfig, site: str) -> int:
 
 def pad_cache(cfg: ArchConfig, cache: PyTree, max_seq: int) -> PyTree:
     """Grow a prefill cache to ``max_seq`` serving slots: KV sites pad
-    the sequence axis (axis 2 of [g, B, S, G, hd]) with zeros up to
+    the sequence axis (axis 2 of [g, B, S, G, hd], and of the int8
+    cache's scales [g, B, S, G, 1]) with zeros up to
     min(max_seq, the site's window); the rolling position formula masks
     the new slots until the stream reaches them.  SSM state and conv
     tails do not depend on the length and pass through."""
@@ -275,9 +313,11 @@ def pad_cache(cfg: ArchConfig, cache: PyTree, max_seq: int) -> PyTree:
 
 
 def prefill(cfg: ArchConfig, params: PyTree, tokens: torch.Tensor,
-            ctx: Ctx) -> Tuple[torch.Tensor, PyTree]:
-    """tokens [B, S] -> (last position's logits [B, V], cache)."""
-    h = _embed(cfg, params, tokens)
+            ctx: Ctx, vision: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, PyTree]:
+    """tokens [B, S] (audio: [B, S, CB]) and, for vlm, ``vision`` [B, V,
+    D] -> (last position's logits [B, V] (audio: [B, CB, V]), cache)."""
+    h = _embed(cfg, params, tokens, vision)
     h, cache = run_layers(cfg, params, h, ctx)
     logits = logits_fn(cfg, params, h[:, -1:, :])
     return logits[:, 0], cache
@@ -286,8 +326,9 @@ def prefill(cfg: ArchConfig, params: PyTree, tokens: torch.Tensor,
 def decode_step(cfg: ArchConfig, params: PyTree, cache: PyTree,
                 tokens: torch.Tensor, ctx: Ctx
                 ) -> Tuple[torch.Tensor, PyTree]:
-    """One decode step at position ``ctx.pos``: tokens [B, 1] ->
-    (logits [B, V], cache), the cache written in place."""
+    """One decode step at position ``ctx.pos``: tokens [B, 1] (audio:
+    [B, 1, CB]) -> (logits [B, V] (audio: [B, CB, V]), cache), the cache
+    written in place."""
     h = _embed(cfg, params, tokens)
     h, cache = run_layers(cfg, params, h, ctx, cache=cache)
     return logits_fn(cfg, params, h)[:, 0], cache

@@ -117,7 +117,8 @@ def make_subset_sum(values, target: int,
     return BinaryProblem(
         name=f"subset_sum[n={n}]", max_depth=n, root=root,
         evaluate_batch=evaluate_batch,
-        payload_zero=lambda: torch.zeros(n, dtype=torch.int32, device=dev))
+        payload_zero=lambda: torch.zeros(n, dtype=torch.int32, device=dev),
+        payload_dtype="int32")
 
 
 def make_subset_sum_py(values, target: int) -> PyProblem:

@@ -13,7 +13,10 @@ On the device of the parameters: the pooled cache is written in place
 (the splice, and each decode step), and a tick reads the host once, for
 the sampled tokens.  Unlike the reference's, the splice puts a hybrid
 model's mamba caches at their own batch axis (the reference's writes the
-layer axis and fails there).  The int8 KV cache is not ported yet.
+layer axis and fails there).  ``kv_quant`` pools the int8 KV cache (its
+scales splice with it).  An audio model's prompts are [plen, CB] and each
+emitted token a list of CB codes.  As in the reference, there is no
+vision input: a vlm model is served on its tokens alone.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.serve.engine import (greedy_sample, make_decode_step,
-                                      make_prefill_step, refuse_kv_quant)
+                                      make_prefill_step)
 
 PyTree = Any
 
@@ -35,9 +38,9 @@ PyTree = Any
 @dataclasses.dataclass
 class Request:
     rid: int
-    prompt: np.ndarray                 # [plen] token ids
+    prompt: np.ndarray                 # [plen] token ids (audio [plen, CB])
     max_new: int
-    out: List[int] = dataclasses.field(default_factory=list)
+    out: List[Any] = dataclasses.field(default_factory=list)
     done: bool = False
 
 
@@ -46,20 +49,24 @@ class BatchedServer:
 
     def __init__(self, cfg: ArchConfig, params: PyTree, batch_slots: int,
                  max_seq: int, block: int = 32, kv_quant: bool = False):
-        refuse_kv_quant(kv_quant)
         self.cfg = cfg
         self.params = params
         self.b = batch_slots
         self.max_seq = max_seq
         self.device = params["embed"].device
-        self.prefill = make_prefill_step(cfg, block_q=block, block_k=block)
-        self.decode = make_decode_step(cfg)
+        self.prefill = make_prefill_step(cfg, block_q=block, block_k=block,
+                                         kv_quant=kv_quant)
+        self.decode = make_decode_step(cfg, kv_quant=kv_quant)
+        # Slots not written yet hold zero scales: they dequantize to zero
+        # keys, and the position mask hides them anyway.
         self.cache = M.cache_init(cfg, batch_slots, max_seq,
-                                  device=self.device)
+                                  device=self.device, quant=kv_quant)
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.pos = 0                  # shared absolute position
-        self.next_tok = torch.zeros((batch_slots, 1), dtype=torch.int32,
-                                    device=self.device)
+        self.tok_shape = ((1, cfg.n_codebooks) if cfg.n_codebooks
+                          else (1,))  # one slot's token, less the batch
+        self.next_tok = torch.zeros((batch_slots,) + self.tok_shape,
+                                    dtype=torch.int32, device=self.device)
 
     # -- admission ---------------------------------------------------------
 
@@ -88,7 +95,8 @@ class BatchedServer:
         if plen != self.pos:
             return False
         self._splice(cache1, idx)
-        self.next_tok[idx:idx + 1] = greedy_sample(logits).reshape(1, 1)
+        self.next_tok[idx:idx + 1] = greedy_sample(logits).reshape(
+            (1,) + self.tok_shape)
         self.slots[idx] = req
         return True
 
@@ -99,7 +107,7 @@ class BatchedServer:
             return 0
         logits, self.cache = self.decode(self.params, self.cache,
                                          self.next_tok, self.pos)
-        tok = greedy_sample(logits).reshape(self.b, 1)
+        tok = greedy_sample(logits).reshape((self.b,) + self.tok_shape)
         self.next_tok = tok
         self.pos += 1
         live = 0
@@ -107,7 +115,8 @@ class BatchedServer:
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
-            req.out.append(int(emitted[i, 0]))
+            req.out.append(emitted[i].ravel().tolist()
+                           if self.cfg.n_codebooks else int(emitted[i, 0]))
             if len(req.out) >= req.max_new or self.pos >= self.max_seq:
                 req.done = True
                 self.slots[i] = None

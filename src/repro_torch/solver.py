@@ -369,7 +369,8 @@ class Solver:
                      lanes=lanes, metrics=snap())
             if (cfg.checkpoint_every and cfg.checkpoint_path
                     and rounds % cfg.checkpoint_every == 0):
-                ckpt.save(cfg.checkpoint_path, _gather_lanes(lanes))
+                ckpt.save(cfg.checkpoint_path, _gather_lanes(lanes),
+                          payload_dtype=problem.payload_dtype)
                 emit(self.on_event, "checkpoint", round=rounds,
                      path=cfg.checkpoint_path)
             done = open_now == 0 and not pool

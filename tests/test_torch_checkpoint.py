@@ -13,6 +13,7 @@ import jax
 import numpy as np
 
 from repro.core import checkpoint as j_ckpt
+from repro.core.serial import serial_rb as j_serial_rb
 from repro.core import distributed as jdist
 from repro.core import engine as jengine
 from repro.problems import graphs as jgraphs
@@ -37,24 +38,26 @@ def solve_cfg(**kw):
                 **kw)
 
 
-def ref_solve(path=None, resume=None, lanes=8, max_rounds=100000):
+def ref_solve(path=None, resume=None, lanes=8, max_rounds=100000,
+              solve=SOLVE):
     cfg = JConfig(lanes=lanes, backend="jnp", max_rounds=max_rounds,
                   checkpoint_every=2 if path else 0, checkpoint_path=path,
                   resume_from=resume, **solve_cfg())
-    return JSolver(cfg).solve(JSolverProblem()).stats
+    return JSolver(cfg).solve(JSolverProblem(solve)).stats
 
 
-def JSolverProblem():
+def JSolverProblem(solve=SOLVE):
     from repro import registry as jregistry
-    return jregistry.problem(*SOLVE)
+    return jregistry.problem(*solve)
 
 
-def port_solve(path=None, resume=None, lanes=8, max_rounds=100000):
+def port_solve(path=None, resume=None, lanes=8, max_rounds=100000,
+               solve=SOLVE):
     cfg = SolverConfig(lanes=lanes, device="cpu", max_rounds=max_rounds,
                        checkpoint_every=2 if path else 0,
                        checkpoint_path=path, resume_from=resume,
                        **solve_cfg())
-    return Solver(cfg).solve(registry.problem(*SOLVE)).stats
+    return Solver(cfg).solve(registry.problem(*solve)).stats
 
 
 def assert_npz_equal(a, b):
@@ -66,22 +69,30 @@ def assert_npz_equal(a, b):
 
 
 def test_solve_checkpoints_cross_both_ways(tmp_path):
-    j_path, t_path = str(tmp_path / "j.ckpt"), str(tmp_path / "t.ckpt")
-    # Both stop mid-solve at round 6, the last checkpoint.
-    j_mid = ref_solve(path=j_path, max_rounds=6)
-    t_mid = port_solve(path=t_path, max_rounds=6)
-    assert tuple(t_mid) == tuple(j_mid) and j_mid.rounds == 6
-    assert_npz_equal(t_path, j_path)
-    want_best = oracle(*SOLVE)
-    for lanes in (5, 12):
-        ref_resumed = ref_solve(resume=j_path, lanes=lanes)
-        assert ref_resumed.best == want_best
-        # The reference's file resumed by the port, and the port's file
-        # resumed by the reference: both equal the reference's own resume.
-        assert tuple(port_solve(resume=j_path, lanes=lanes)) == \
-            tuple(ref_resumed)
-        assert tuple(ref_solve(resume=t_path, lanes=lanes)) == \
-            tuple(ref_resumed)
+    """vc (a uint32 bitset payload) on 8 lanes and subset sum (an int32
+    payload, written as int32 by both packages) on 4."""
+    for solve, lanes0 in ((SOLVE, 8), (("ss", "ss:12:0"), 4)):
+        tag = solve[0]
+        j_path = str(tmp_path / f"j_{tag}.ckpt")
+        t_path = str(tmp_path / f"t_{tag}.ckpt")
+        # Both stop mid-solve at round 6, the last checkpoint.
+        j_mid = ref_solve(path=j_path, lanes=lanes0, max_rounds=6,
+                          solve=solve)
+        t_mid = port_solve(path=t_path, lanes=lanes0, max_rounds=6,
+                           solve=solve)
+        assert tuple(t_mid) == tuple(j_mid) and j_mid.rounds == 6, solve
+        assert_npz_equal(t_path, j_path)
+        want_best = j_serial_rb(JSolverProblem(solve).oracle())[0]
+        for lanes in (5, 12):
+            ref_resumed = ref_solve(resume=j_path, lanes=lanes, solve=solve)
+            assert ref_resumed.best == want_best, solve
+            # The reference's file resumed by the port, and the port's
+            # file resumed by the reference: both equal the reference's
+            # own resume.
+            assert tuple(port_solve(resume=j_path, lanes=lanes,
+                                    solve=solve)) == tuple(ref_resumed)
+            assert tuple(ref_solve(resume=t_path, lanes=lanes,
+                                   solve=solve)) == tuple(ref_resumed)
 
 
 def test_restore_repartition_install_pending_equal_reference(tmp_path):

@@ -2,11 +2,12 @@
 
 Each module of the serving path (RoPE, decode attention on a rolling
 cache, the causal convs, RMSNorm, the MLPs, the attention sublayer and
-the mamba layer in prefill and decode) gets the same numpy-seeded inputs
-in ``repro`` and in ``repro_torch``, the blocks' parameters carried across
-by ``repro_torch.convert``; the configurations and parameter declarations
-against the reference's.  The whole model is
-``tests/test_torch_lm_model.py``.
+the mamba layer in prefill and decode, and the int8 KV cache's
+quantizer and decode attention) gets the same numpy-seeded inputs in
+``repro`` and in ``repro_torch``, the blocks' parameters carried across by
+``repro_torch.convert``; the configurations and parameter declarations
+against the reference's.  The MoE is ``tests/test_torch_moe.py``, the
+whole model ``tests/test_torch_lm_model.py``.
 
 Tolerances: float32 within 1e-4 (relative to the largest value); bfloat16
 within the kernels' own (flash attention 2e-2, SSD 5e-2) and, for the
@@ -37,9 +38,10 @@ from repro_torch.models import attention, blocks, layers, model, ssm
 from repro_torch.core.api import tree_leaves
 from repro_torch.serve import engine
 
-#: The smoke configurations of the families the port runs.
+#: The smoke configurations of every family.
 ARCHS = ("qwen1.5-32b", "qwen2-7b", "gemma2-27b", "glm4-9b", "mamba2-130m",
-         "zamba2-2.7b")
+         "zamba2-2.7b", "mixtral-8x22b", "llama4-scout-17b-a16e",
+         "internvl2-76b", "musicgen-large")
 F32_TOL = 1e-4
 BF16_TOL = 0.08
 FLASH_TOL = 2e-2
@@ -74,8 +76,19 @@ def numpy_params(cfg, seed, dtype):
 
 
 def tokens(cfg, b, s, seed=1):
+    """[b, s] token ids (audio: [b, s, n_codebooks])."""
+    shape = (b, s) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
     return np.random.RandomState(seed).randint(0, cfg.vocab,
-                                               (b, s)).astype(np.int32)
+                                               shape).astype(np.int32)
+
+
+def vision(cfg, b, seed=2):
+    """A vlm model's [b, vision_tokens, d_model] embeddings (its stub
+    frontend's scale, 0.02), or None for the other families."""
+    if not cfg.vision_tokens:
+        return None
+    return (np.random.RandomState(seed).standard_normal(
+        (b, cfg.vision_tokens, cfg.d_model)) * 0.02).astype(np.float32)
 
 
 def t(x, dtype="f32"):
@@ -176,14 +189,18 @@ def test_init_follows_the_reference_s_laws():
     assert abs(float(embed.std()) * np.sqrt(cfg.vocab) - 1.0) < 0.05
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e",
-                                  "internvl2-76b", "musicgen-large"])
-def test_unported_families_raise(arch):
-    cfg = configs.smoke(arch)
-    for build in (model.param_decls, engine.make_prefill_step,
-                  engine.make_decode_step):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            build(cfg)
+@pytest.mark.parametrize("arch", rconfigs.ARCH_IDS)
+def test_every_configuration_s_family_is_ported(arch):
+    """``check_family`` takes every configuration of the repo, full and
+    smoke, and a family the port does not know still raises."""
+    for cfg in (configs.get(arch), configs.smoke(arch)):
+        model.check_family(cfg)
+        engine.make_prefill_step(cfg)
+        engine.make_decode_step(cfg, kv_quant=True)
+    assert model.param_decls(configs.smoke(arch))["layers"]
+    with pytest.raises(NotImplementedError, match="not one the port runs"):
+        model.check_family(dataclasses.replace(configs.smoke(arch),
+                                               family="diffusion"))
 
 
 # -- modules -----------------------------------------------------------------
@@ -377,3 +394,55 @@ def test_mamba_layer(arch, dtype):
         assert_close(got, want, dtype, tol)
         for name in ("state", "conv"):
             assert_close(mcache[name], rcache[name], dtype, tol)
+
+
+# -- the int8 KV cache -------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_kv_is_bitwise_the_reference_s(dtype):
+    rng = np.random.RandomState(8)
+    x = rng.standard_normal((2, 9, 3, 16)) * 3
+    x[0, 0, 0] = 0.0                     # an all-zero row: the 1e-6 floor
+    x[1, 2, 1, :4] = [127.5, -127.5, 0.5, 1.5]   # halves round to even
+    r8, rs = rattn.quantize_kv(j(x, dtype))
+    m8, ms = attention.quantize_kv(t(x, dtype))
+    assert m8.dtype == torch.int8 and ms.dtype == torch.float32
+    assert np.array_equal(m8.numpy(), np.asarray(r8))
+    assert np.array_equal(ms.numpy(), np.asarray(rs))
+
+
+@pytest.mark.parametrize("case", ["full", "window", "rolling", "softcap"])
+@pytest.mark.parametrize("block", [2048, 5])
+def test_decode_attention_quant(case, block):
+    """One query against an int8 cache, within 1e-5 of the reference's in
+    float32; block 5 splits the 12 slots into 3 blocks, the last padded.
+    The reference runs op by op (``jax.disable_jit``), the arithmetic its
+    code states: compiled, XLA's CPU backend rewrites the scan body's
+    bfloat16 steps (k8 * ks, p) and its result moves by about 2e-3."""
+    rng = np.random.RandomState(9)
+    b, sc, h, g, hd = 2, 12, 4, 2, 16
+    q = rng.standard_normal((b, 1, h, hd))
+    kv = [attention.quantize_kv(t(rng.standard_normal((b, sc, g, hd))))
+          for _ in range(2)]
+    (k8, ks), (v8, vs) = kv
+    kw = {"window": None, "softcap": 0.0, "query_scale": None,
+          "block": block}
+    pos, kpos = 7, None
+    if case == "window":
+        kw["window"] = 5
+    if case == "softcap":
+        kw.update(softcap=1.5, query_scale=0.3)
+    if case == "rolling":
+        kw["window"] = sc
+        pos = 30
+        kpos = pos - ((pos - np.arange(sc)) % sc)
+        kpos[3] = -4                           # a slot not written yet
+    jx = lambda x: jnp.asarray(x.numpy())      # noqa: E731
+    with jax.disable_jit():
+        want = rattn.decode_attention_quant(
+            j(q), jx(k8), jx(v8), jx(ks), jx(vs), jnp.int32(pos),
+            k_positions=None if kpos is None else jnp.asarray(kpos), **kw)
+    got = attention.decode_attention_quant(
+        t(q), k8, v8, ks, vs, pos,
+        k_positions=None if kpos is None else torch.from_numpy(kpos), **kw)
+    assert rel_err(got, want) <= 1e-5
