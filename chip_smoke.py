@@ -155,9 +155,25 @@ Phases (any failure raises and exits non-zero):
      configurations (hd 16 through the padded kernel) and mixtral's first
      layer (B=1, S=128) on the card against the CPU within 0.08, routing
      compared first (near-ties counted; with one, layer by layer);
+ 28. LM training: zamba2-2.7b at full width and depth (2.34 B
+     parameters, f32 masters and AdamW state, bf16 compute, ``remat=
+     "full"``) takes 3 AdamW steps of 4 x 1024 tokens through the
+     launcher's ``train()``: 18 ``flash_attention`` and 108 ``ssd_scan``
+     launches a step (forward and the recompute; the backward
+     differentiates the plain versions inside ``kernels/plain_grad.py``'s
+     Function), step time, train tokens/s, peak memory; one more step
+     under ``set_sync_debug_mode("error")`` with every parameter leaf
+     given a non-zero gradient; one step profiled by phase (forward,
+     backward, optimizer) and kernel group; the Function on that step's
+     live inputs (value within the kernels' tolerances, gradients bitwise
+     the plain version's); the zamba2 smoke configuration and one group at
+     full width, one step on the card against the CPU; mamba2-130m at
+     full width and depth, 20 steps at 8 x 256 resumed from its step-10
+     checkpoint to the unbroken run's losses; ``compressed_psum`` and
+     ``pipeline_forward`` on 4 shards of ``cuda:0`` against the CPU's;
      then the ``kernels`` line for all six kernels (``launches`` of the
-     LM kernels: phases 26 and 27's serving runs), and the seconds each
-     phase took.  The CPU's side of phases 19, 20 and 22 runs in three
+     LM kernels: phases 26 and 27's serving runs and phase 28's training
+     runs), and the seconds each phase took.  The CPU's side of phases 19, 20 and 22 runs in three
      processes of its own (``--cpu-twin``) while the card runs 19-24.
 
 The last line of standard output is
@@ -395,6 +411,35 @@ FAMILY_TWIN = (2, 40, 3)
 MOE_LAYER_TWIN = (1, 128)
 #: The MoE's steps, profiled as ranges of one mixtral prefill.
 MOE_STEPS = ("route", "dispatch", "gather_tokens", "expert_ffn", "combine")
+#: Phase 28, LM training: ``TRAIN_ARCH`` at full width and depth through
+#: the launcher's ``train()`` (f32 masters, bf16 compute, ``remat="full"``,
+#: one microbatch, AdamW), ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x
+#: ``TRAIN_SEQ`` tokens from the port's pipeline; then one step with every
+#: sync an error and each gradient leaf checked, one profiled step, and the
+#: two kernels' gradient Function on that step's live inputs.
+#: ``TRAIN_TWINS``: (arch, groups (None: the smoke configuration), B, S) run
+#: one step on the card and on the CPU from the same parameters and batch:
+#: the loss within ``TRAIN_LOSS_TOL`` (relative), the gradient norm and
+#: the whole gradient within ``TRAIN_GRAD_TOL`` (normalised error ||card -
+#: cpu|| / ||cpu||), the parameters after the step within 2 lr + 1e-6 (a
+#: gradient near zero may flip the sign of Adam's first update); then the
+#: gradients in float32 compute, the loss and every leaf within
+#: ``TRAIN_F32_TOL`` (relative, normalised).  ``TRAIN_RESUME``: (arch, B,
+#: S, steps, checkpoint step) through ``train()`` at full width and depth,
+#: resumed from the checkpoint: the unbroken run's losses within
+#: ``TRAIN_RESUME_TOL`` (absolute; the card's atomics may reorder a sum).
+#: ``TRAIN_MESH``: shards of ``cuda:0`` for ``compressed_psum`` and
+#: ``pipeline_forward``, held to the CPU's.
+TRAIN_ARCH = "zamba2-2.7b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 3
+TRAIN_SEED = 28
+TRAIN_TWINS = (("zamba2-2.7b", None, 2, 64), ("zamba2-2.7b", 1, 1, 128))
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_F32_TOL = 1e-2
+TRAIN_RESUME = ("mamba2-130m", 8, 256, 20, 10)
+TRAIN_RESUME_TOL = 1e-3
+TRAIN_MESH = 4
 #: q and k are drawn at this scale, so the scores scale * q.k spread by
 #: about 6 (held at MIN_SCORE_STD or more): the softmax is peaked, a
 #: window changes which key wins, and the softcap bends the largest
@@ -3622,6 +3667,515 @@ def phase_lm_families(report):
     return attention
 
 
+# -- phase 28: LM training -------------------------------------------------
+
+#: The training step's host ranges (``train/step.py``), in order.
+TRAIN_RANGES = ("train.forward", "train.backward", "train.optimizer")
+
+
+def train_launches(cfg):
+    """Each kernel's launches in one training step at one microbatch: one
+    a site in the forward, and as many again in the backward's recompute
+    under remat; the backward itself runs the plain versions."""
+    from repro_torch.models import model
+    passes = 1 if cfg.remat == "none" else 2
+    sites = model.n_groups(cfg) if cfg.family == "hybrid" else (
+        0 if cfg.family == "ssm" else cfg.n_layers)
+    return {"flash_attention": passes * sites,
+            "ssd_scan": passes * (cfg.n_layers if cfg.family in
+                                  ("ssm", "hybrid") else 0)}
+
+
+def train_args(arch, batch, seq, steps, **kw):
+    """The launcher's flags for ``train()`` on the card, ``kw`` over them."""
+    from repro_torch.launch import train as launch_train
+    args = launch_train.parser().parse_args(
+        ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+         "--steps", str(steps), "--seed", str(TRAIN_SEED), "--device", DEV])
+    return argparse.Namespace(**{**vars(args), **kw})
+
+
+@contextlib.contextmanager
+def train_taps(grads_out, live):
+    """Inside the block: each gradient tree the training step computes
+    (``train.step.loss_and_grads``) goes to ``grads_out``, and ``live``
+    keeps detached copies of the first inputs (and keyword arguments) of
+    each kernel wrapper the model calls."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    from repro_torch.train import step as tstep
+    grads_fn, flash, scan = (tstep.loss_and_grads, fa_mod.flash_attention,
+                             ssd_mod.ssd_scan)
+
+    def tapped_grads(loss, cparams, batch):
+        value, grads = grads_fn(loss, cparams, batch)
+        grads_out.append(grads)
+        return value, grads
+
+    def tap(name, fn):
+        def run(*args, **kw):
+            if name not in live:
+                live[name] = ([t.detach().clone() for t in args], kw)
+            return fn(*args, **kw)
+        return run
+
+    tstep.loss_and_grads = tapped_grads
+    fa_mod.flash_attention = tap("flash_attention", flash)
+    ssd_mod.ssd_scan = tap("ssd_scan", scan)
+    try:
+        yield
+    finally:
+        tstep.loss_and_grads = grads_fn
+        fa_mod.flash_attention, ssd_mod.ssd_scan = flash, scan
+
+
+def gradient_flags(grads):
+    """(leaves, leaves whose gradient is None, a bool tensor on the device:
+    True where a leaf's gradient has an element other than 0)."""
+    from repro_torch.core.api import tree_leaves
+    leaves = tree_leaves(grads)
+    given = [g for g in leaves if g is not None]
+    return len(leaves), len(leaves) - len(given), torch.stack(
+        [torch.amax(torch.abs(g)).float() > 0 for g in given])
+
+
+def function_parity(report, live):
+    """The kernels' gradient Function (``kernels/plain_grad.py``) on the
+    step's live inputs: its value within the kernel's tolerances of the
+    plain version's, and every input's gradient for one seeded output
+    gradient bitwise that of autograd through the plain version."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(TRAIN_SEED)
+    out = {}
+    for name, wrapper, plain in (
+            ("flash_attention", fa_mod.flash_attention,
+             ref.flash_attention_ref),
+            ("ssd_scan", ssd_mod.ssd_scan, ref.ssd_scan_ref)):
+        args, kw = live[name]
+        ins = [t.clone().requires_grad_() for t in args]
+        got = wrapper(*ins, **kw)
+        want = plain(*ins, **kw)
+        got, want = ((x,) if name == "flash_attention" else x
+                     for x in (got, want))
+        check(type(got[0].grad_fn).__name__ == "PlainGradBackward",
+              f"{name}: the wrapper's output on the card has grad_fn "
+              f"{type(got[0].grad_fn).__name__}, not the Function's")
+        kind = "bf16" if ins[0].dtype == torch.bfloat16 else "f32"
+        tol, rel_tol = ((TOL[kind], REL_TOL[kind]) if name == "flash_attention"
+                        else (SSD_TOL[kind], SSD_REL_TOL[kind]))
+        err, rel, ok = close(got[0].detach(), want[0].detach(), tol,
+                             rel_tol)
+        note_error(report["parity"][name], err, rel)
+        if name == "ssd_scan":
+            st_err, st_rel, st_ok = close(got[1].detach(), want[1].detach(),
+                                          STATE_TOL, STATE_TOL)
+            note_error(report["parity"][name], st_err, st_rel)
+            ok = ok and st_ok
+        check(ok, f"{name}: the Function's value on the live inputs "
+                  f"{tuple(ins[0].shape)}: max abs err {err}, normalised "
+                  f"{rel}")
+        # Train mode uses y alone: the state gets no gradient.
+        g = torch.randn(got[0].shape, generator=gen, device=DEV).to(
+            got[0].dtype)
+        mine = torch.autograd.grad(got[0], ins, g, allow_unused=True)
+        theirs = torch.autograd.grad(want[0], ins, g, allow_unused=True)
+        same = [(a is None and b is None) or (
+            a is not None and b is not None and bool(torch.equal(a, b)))
+            for a, b in zip(mine, theirs)]
+        check(all(same), f"{name}: the Function's gradients on the live "
+                         f"inputs differ from the plain version's: {same}")
+        out[name] = dict(shape=list(ins[0].shape), max_abs_err=err,
+                         normalised_err=rel, grads_equal=len(same))
+    return out
+
+
+def train_profile(fn):
+    """One call of ``fn`` (a training step) under the profiler: its
+    kernels' device time by the step's phase (the range of
+    ``TRAIN_RANGES`` whose span holds the start of the host operation
+    that launched the kernel; the backward runs in autograd's threads, so
+    spans, not parents; "other" is the cast, the schedule and the
+    gradient norm) and by group (``KERNEL_GROUPS``; the plain versions
+    run inside the kernels' gradient Function, every kernel under a
+    ``PlainGradBackward`` node, a group of their own)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms, _ = sync_ms(fn)
+    events = prof.events()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.name in TRAIN_RANGES]
+    phases = dict.fromkeys(list(TRAIN_RANGES) + ["other"], 0.0)
+    groups, total, launches = {}, 0.0, 0
+    for evt in events:
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
+            continue
+        phase = next((n for n, a, b in spans
+                      if a <= evt.time_range.start <= b), "other")
+        up, in_plain = evt, False
+        while up is not None and not in_plain:
+            in_plain = "PlainGradBackward" in up.name
+            up = up.cpu_parent
+        for kern in evt.kernels:
+            kind = next((g for g, pat in KERNEL_GROUPS
+                         if re.search(pat, kern.name, re.IGNORECASE)),
+                        "other")
+            if in_plain and kind not in ("flash_attention", "ssd_scan"):
+                kind = "plain versions in the kernels' backward"
+            groups[kind] = groups.get(kind, 0.0) + kern.duration
+            phases[phase] += kern.duration
+            total += kern.duration
+            launches += 1
+    return dict(wall_ms=wall_ms, device_ms=total / 1e3,
+                busy_share=total / 1e3 / wall_ms, device_ops=launches,
+                phases_ms={k: us / 1e3 for k, us in phases.items()},
+                groups_ms={g: us / 1e3 for g, us in sorted(
+                    groups.items(), key=lambda kv: -kv[1])})
+
+
+def normalised(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def named_leaves(tree, path=""):
+    """[(path, leaf)] of a parameter tree, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in named_leaves(v, f"{path}.{k}" if path else k)]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def train_twin(arch, groups, b, s):
+    """One training step of ``arch`` (its smoke configuration, or
+    ``groups`` groups at full width) on the card and on the CPU from the
+    same float32 masters (the port's init, a CPU generator seeded
+    ``TRAIN_SEED``) and batch, as it trains (bf16 compute): the loss, the
+    gradient norm, the whole gradient (every leaf in one vector) and the
+    parameters after the step held to the CPU's.  Then the gradients in
+    float32 compute (the masters themselves, the kernels' float32 routes
+    on the card), each leaf held to the CPU's: bf16's rounding, summed
+    with cancellation into a small leaf (a head's ``dt_bias`` gathers
+    every token), can move such a leaf by more than the whole, so the
+    per-leaf check is made where rounding does not hide a dropped term."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core.api import tree_leaves, tree_map
+    from repro_torch.data import pipeline
+    from repro_torch.models import model
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.step import (loss_and_grads, make_loss,
+                                        make_train_step, master_params)
+    cfg = configs.smoke(arch)
+    if groups is not None:
+        full = configs.get(arch)
+        cfg = dataclasses.replace(full, n_layers=groups * (
+            full.hybrid_period if full.family == "hybrid" else 1))
+    params = master_params(cfg, model.init(
+        cfg, torch.Generator().manual_seed(TRAIN_SEED), "cpu"))
+    names = [name for name, _ in named_leaves(params)]
+    batch = pipeline.synthetic_batch(cfg, b, s, seed=TRAIN_SEED, step=0)
+    host = lambda t: t.to("cpu", torch.float32)  # noqa: E731
+    runs = {}
+    for dev in (DEV, "cpu"):
+        p = tree_map(lambda x: x.to(dev, copy=True), params)
+        on_dev = {k: v.to(dev) for k, v in batch.items()}
+        grads = []
+        with train_taps(grads, {}):
+            step = make_train_step(cfg, microbatches=1, block_q=64,
+                                   block_k=64, device=dev)
+            new, _, m = step(p, adamw_init(p), on_dev, 1)
+        bf16 = [host(g) for g in tree_leaves(grads[0])]
+        new = [host(x) for x in tree_leaves(new)]
+        del p, grads
+        loss32, grads32 = loss_and_grads(
+            make_loss(cfg, 64, 64),
+            tree_map(lambda x: x.to(dev, copy=True), params), on_dev)
+        runs[dev] = ({k: float(v) for k, v in m.items()}, bf16, new,
+                     float(loss32), [host(g) for g in tree_leaves(grads32)])
+        del grads32
+    (card_m, card_g, card_p, card_l32, card_g32) = runs[DEV]
+    (cpu_m, cpu_g, cpu_p, cpu_l32, cpu_g32) = runs["cpu"]
+    what = cfg.name if groups is None else f"{arch}, {groups} group(s)"
+    loss_err = abs(card_m["loss"] - cpu_m["loss"]) / abs(cpu_m["loss"])
+    gnorm_err = abs(card_m["grad_norm"] - cpu_m["grad_norm"]) / abs(
+        cpu_m["grad_norm"])
+    whole_err = normalised(torch.cat([g.ravel() for g in card_g]),
+                           torch.cat([g.ravel() for g in cpu_g]))
+    leaf_errs = [normalised(x, y) for x, y in zip(card_g, cpu_g)]
+    worst = max(range(len(leaf_errs)), key=leaf_errs.__getitem__)
+    step_err = max(float((x - y).abs().max()) for x, y in zip(card_p, cpu_p))
+    bound = 2 * cpu_m["lr"] + 1e-6
+    loss32_err = abs(card_l32 - cpu_l32) / abs(cpu_l32)
+    errs32 = [normalised(x, y) for x, y in zip(card_g32, cpu_g32)]
+    worst32 = max(range(len(errs32)), key=errs32.__getitem__)
+    check(loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GRAD_TOL
+          and whole_err <= TRAIN_GRAD_TOL and step_err <= bound,
+          f"{what}: one training step, card against CPU: loss "
+          f"{card_m['loss']} / {cpu_m['loss']} (relative {loss_err}, tol "
+          f"{TRAIN_LOSS_TOL}), grad_norm relative {gnorm_err}, the whole "
+          f"gradient normalised {whole_err} (tol {TRAIN_GRAD_TOL}), "
+          f"parameters after the step {step_err} (tol {bound})")
+    check(loss32_err <= TRAIN_F32_TOL and errs32[worst32] <= TRAIN_F32_TOL,
+          f"{what}: float32 gradients, card against CPU: loss relative "
+          f"{loss32_err}, leaf {names[worst32]} normalised "
+          f"{errs32[worst32]} (tol {TRAIN_F32_TOL})")
+    return dict(what=what, B=b, S=s, leaves=len(cpu_g),
+                loss=[card_m["loss"], cpu_m["loss"]], loss_rel_err=loss_err,
+                grad_norm_rel_err=gnorm_err, whole_grad_err=whole_err,
+                worst_bf16_leaf=(names[worst], leaf_errs[worst]),
+                params_max_abs_err=step_err, params_bound=bound,
+                f32_loss_rel_err=loss32_err,
+                worst_f32_leaf=(names[worst32], errs32[worst32]))
+
+
+def train_resume():
+    """``TRAIN_RESUME`` through ``train()``: a run to the checkpoint, a
+    run resumed from it, and an unbroken run; the losses of both halves
+    against the unbroken run's.  The schedule's warmup (100 steps) covers
+    all of them, so the first run's rate does not depend on its
+    ``--steps``."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import train
+    arch, b, s, steps, at = TRAIN_RESUME
+    path = ROOT / "chiprun_out" / "chip_smoke_train.ckpt"
+    _build.reset_launches()
+    first = train(train_args(arch, b, s, at, ckpt=str(path), ckpt_every=at))
+    resumed = train(train_args(arch, b, s, steps, ckpt=str(path),
+                               resume=True, ckpt_every=steps))
+    whole = train(train_args(arch, b, s, steps))
+    launched = launches_since(dict.fromkeys(("flash_attention", "ssd_scan"),
+                                            0))
+    path.unlink()
+    check(resumed["start"] == at, f"{arch}: resumed at step "
+                                  f"{resumed['start']}, not {at}")
+    losses = [float(m["loss"]) for m in whole["metrics"]]
+    halves = [float(m["loss"]) for m in first["metrics"]
+              + resumed["metrics"]]
+    err = max(abs(x - y) for x, y in zip(halves, losses))
+    check(len(halves) == len(losses) == steps and err <= TRAIN_RESUME_TOL
+          and all(math.isfinite(x) for x in losses),
+          f"{arch}: {steps} steps resumed at {at}: losses {halves} against "
+          f"the unbroken run's {losses} (max abs diff {err}, tol "
+          f"{TRAIN_RESUME_TOL})")
+    per_step = train_launches(whole["cfg"])
+    check(launched == {k: 2 * steps * v for k, v in per_step.items()},
+          f"{arch}: launches {launched} over {2 * steps} steps, expected "
+          f"{per_step} a step")
+    return dict(arch=arch, B=b, S=s, steps=steps, resumed_at=at,
+                losses=losses, resumed_losses=halves, max_abs_diff=err,
+                step_s=whole["step_s"], launches=launched,
+                bitwise=halves == losses)
+
+
+def train_mesh():
+    """``compressed_psum`` and ``pipeline_forward`` on ``TRAIN_MESH``
+    shards of ``cuda:0`` and of the CPU from the same inputs: the means
+    bitwise, the residuals within 1e-5 of the shared scale, the pipeline's
+    outputs within 1e-5 (float32, TF32 off) and the stages' sequence."""
+    from repro_torch.core.api import tree_map
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.distributed.pipeline_parallel import pipeline_forward
+    from repro_torch.train.compression import compressed_psum
+    n = TRAIN_MESH
+    gen = torch.Generator().manual_seed(TRAIN_SEED)
+    grads = [{"w": torch.randn(512, 640, generator=gen),
+              "b": torch.randn(640, generator=gen) * 1e-3} for _ in range(n)]
+    errors = [tree_map(lambda x: x * 1e-2, g) for g in grads]
+    ws = [torch.randn(256, 256, generator=gen) / 16 + torch.eye(256)
+          for _ in range(n)]
+    x = torch.randn(6, 8, 256, generator=gen)
+    out = {}
+    for name, mesh in (("card", shard_mesh(DEV_MESH, n)),
+                       ("cpu", Mesh(["cpu"] * n))):
+        put = lambda trees: [tree_map(lambda t, d=d: t.to(d), tr)  # noqa
+                             for tr, d in zip(trees, mesh.devices)]
+        means, errs = compressed_psum(put(grads), mesh, put(errors))
+        y = pipeline_forward(lambda w, h: torch.tanh(h @ w), ws,
+                             x.to(mesh.devices[0]), mesh)
+        out[name] = ([tree_map(lambda t: t.cpu(), m) for m in means],
+                     [tree_map(lambda t: t.cpu(), e) for e in errs], y.cpu())
+    (cm, ce, cy), (pm, pe, py) = out["card"], out["cpu"]
+    same_means = all(torch.equal(a[k], b[k]) for a, b in zip(cm, pm)
+                     for k in a)
+    scale = max(float((g[k] + e[k]).abs().max())
+                for g, e in zip(grads, errors) for k in g) / 127
+    res_diff = max(float((a[k] - b[k]).abs().max())
+                   for a, b in zip(ce, pe) for k in a)
+    pipe_diff = float((cy - py).abs().max())
+    seq = x
+    for w in ws:
+        seq = torch.tanh(seq @ w)
+    check(same_means and res_diff <= 1e-5 * scale and pipe_diff <= 1e-5
+          and torch.equal(py, seq),
+          f"{n} shards of {DEV_MESH} against the CPU's: compressed_psum "
+          f"means bitwise {same_means}, residuals max abs diff {res_diff} "
+          f"(tol {1e-5 * scale}); pipeline_forward max abs diff "
+          f"{pipe_diff} (tol 1e-5)")
+    return dict(shards=n, means_bitwise=same_means,
+                residual_max_abs_diff=res_diff, pipeline_max_abs_diff=pipe_diff)
+
+
+def phase_lm_training(report):
+    """``TRAIN_ARCH`` at full width and depth trained on the card through
+    the launcher's ``train()``: launches per step, step time, train
+    tokens/s, peak memory; one step with every sync an error and every
+    gradient leaf non-zero; one step profiled by phase and kernel group;
+    the gradient Function on live inputs; ``TRAIN_TWINS`` card against
+    CPU; ``TRAIN_RESUME`` resumed from its checkpoint; the mesh's
+    ``compressed_psum`` and ``pipeline_forward``."""
+    import statistics
+    from repro_torch.core.api import tree_leaves
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import train
+    from repro_torch.train.step import make_train_step
+    t0 = time.perf_counter()
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    r = train(train_args(TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = launches_since(dict.fromkeys(("flash_attention", "ssd_scan"),
+                                            0))
+    for name, count in launched.items():
+        report["launches"][name] += count
+    cfg, params, opt = r["cfg"], r["params"], r["opt"]
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    per_step = train_launches(cfg)
+    check(launched == {k: TRAIN_STEPS * v for k, v in per_step.items()},
+          f"{TRAIN_ARCH}: launches {launched} in {TRAIN_STEPS} steps, "
+          f"expected {per_step} a step")
+    losses = [float(m["loss"]) for m in r["metrics"]]
+    gnorms = [float(m["grad_norm"]) for m in r["metrics"]]
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"{TRAIN_ARCH}: losses {losses}, grad norms {gnorms}")
+    step_s = r["step_s"]
+    median = statistics.median(step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 28: {TRAIN_ARCH} trained through the launcher's train() "
+          f"({n_params / 1e9:.3f} B parameters, f32 masters, bf16 compute, "
+          f"remat={cfg.remat!r}, {TRAIN_STEPS} AdamW steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, grad norms "
+          f"{', '.join(f'{x:.3f}' for x in gnorms)}; "
+          f"{per_step['flash_attention']} flash_attention and "
+          f"{per_step['ssd_scan']} ssd_scan launches a step (the forward"
+          f"{'' if cfg.remat == 'none' else ' and the remat recompute'}); "
+          f"step times "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in step_s)} ms, "
+          f"{median * 1e3:.1f} ms the median of steps 2-{TRAIN_STEPS}, "
+          f"{tokens / median:.0f} train tokens/s; peak memory {peak:.2f} "
+          f"GiB; on {report['card']}", flush=True)
+
+    # One more step: every sync an error, every gradient leaf checked,
+    # the kernel wrappers' first live inputs kept.
+    step = make_train_step(cfg, microbatches=1, block_q=64, block_k=64,
+                           device=DEV)
+    batch = pipeline.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                     seed=TRAIN_SEED, step=TRAIN_STEPS,
+                                     device=DEV)
+    grads, live = [], {}
+    before = dict(_build.LAUNCHES)
+    with train_taps(grads, live), sync_debug("error"):
+        params, opt, m = step(params, opt, batch, TRAIN_STEPS + 1)
+        n_leaves, missing, nonzero = gradient_flags(grads[0])
+    del grads
+    audited = launches_since(before)
+    nonzero = nonzero.cpu()
+    check(missing == 0 and bool(nonzero.all()) and n_leaves == len(
+        tree_leaves(params)) and audited == per_step,
+          f"{TRAIN_ARCH}: the audited step: {missing} of {n_leaves} leaves "
+          f"without a gradient, {int((~nonzero).sum())} all zero; launches "
+          f"{audited}")
+    print(f"phase 28: one more step under set_sync_debug_mode(\"error\"): "
+          f"no sync; {n_leaves} parameter leaves, each given a gradient "
+          f"with a non-zero element; launches {audited}; loss "
+          f"{float(m['loss']):.4f}", flush=True)
+    prof = train_profile(lambda: step(params, opt, batch, TRAIN_STEPS + 2))
+    print(f"phase 28: one step profiled: wall {prof['wall_ms']:.1f} ms, "
+          f"device {prof['device_ms']:.1f} ms (busy "
+          f"{prof['busy_share']:.2f}, {prof['device_ops']} kernels and "
+          f"copies): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                   prof["phases_ms"].items())
+          + " ms; by group " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                         prof["groups_ms"].items())
+          + " ms", flush=True)
+    functions = function_parity(report, live)
+    print(f"phase 28: the gradient Function on the audited step's live "
+          f"inputs: " + "; ".join(
+              f"{k} {tuple(v['shape'])} value max abs err "
+              f"{v['max_abs_err']:.3g} (normalised {v['normalised_err']:.2g}"
+              f"), {v['grads_equal']} input gradients bitwise the plain "
+              f"version's" for k, v in functions.items()), flush=True)
+    out.update(arch=TRAIN_ARCH, parameters=n_params, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, losses=losses, grad_norms=gnorms,
+               step_s=step_s, median_step_s=median,
+               train_tokens_per_s=tokens / median, peak_gib=peak,
+               launches_per_step=per_step, leaves=n_leaves, profile=prof,
+               functions=functions)
+    del r, params, opt, step, batch, live, m
+    torch.cuda.empty_cache()
+
+    out["twins"] = []
+    for arch, groups, b, s in TRAIN_TWINS:
+        t_twin = time.perf_counter()
+        twin = train_twin(arch, groups, b, s)
+        twin["seconds"] = time.perf_counter() - t_twin
+        out["twins"].append(twin)
+        print(f"phase 28: {twin['what']}, B={b} S={s}, one training step "
+              f"card against CPU: loss {twin['loss'][0]:.5f} / "
+              f"{twin['loss'][1]:.5f} (relative {twin['loss_rel_err']:.2g}"
+              f"), grad norm relative {twin['grad_norm_rel_err']:.2g}, the "
+              f"whole gradient normalised {twin['whole_grad_err']:.3g} (the "
+              f"worst of {twin['leaves']} leaves "
+              f"{twin['worst_bf16_leaf'][0]} "
+              f"{twin['worst_bf16_leaf'][1]:.3g}), parameters after the "
+              f"step max abs diff {twin['params_max_abs_err']:.3g} (2 lr + "
+              f"1e-6 = {twin['params_bound']:.3g}); float32 gradients: "
+              f"loss relative {twin['f32_loss_rel_err']:.2g}, the worst leaf "
+              f"{twin['worst_f32_leaf'][0]} normalised "
+              f"{twin['worst_f32_leaf'][1]:.3g} ({twin['seconds']:.1f} s)",
+              flush=True)
+    torch.cuda.empty_cache()
+
+    t_resume = time.perf_counter()
+    resume = train_resume()
+    for name, count in resume["launches"].items():
+        report["launches"][name] += count
+    out["resume"] = resume
+    arch, b, s, steps, at = TRAIN_RESUME
+    print(f"phase 28: {arch} at full width and depth through train() (B={b}"
+          f" S={s}), {steps} steps, checkpoint at step {at} and a resume "
+          f"from it: the halves' losses against the unbroken run's max abs "
+          f"diff {resume['max_abs_diff']:.3g} (tol {TRAIN_RESUME_TOL}; "
+          f"bitwise: {resume['bitwise']}); losses "
+          f"{resume['losses'][0]:.4f} -> {resume['losses'][-1]:.4f}; "
+          f"median step {statistics.median(resume['step_s']) * 1e3:.1f} ms "
+          f"({time.perf_counter() - t_resume:.1f} s)", flush=True)
+
+    mesh = train_mesh()
+    out["mesh"] = mesh
+    print(f"phase 28: compressed_psum and pipeline_forward on {TRAIN_MESH} "
+          f"shards of {DEV_MESH} against the CPU's: means bitwise "
+          f"{mesh['means_bitwise']}, residuals max abs diff "
+          f"{mesh['residual_max_abs_diff']:.3g}, pipeline max abs diff "
+          f"{mesh['pipeline_max_abs_diff']:.3g}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 28: {out['seconds']:.1f} s on {report['card']}",
+          flush=True)
+    report["lm_training"] = out
+
+
 # -- driver -----------------------------------------------------------------
 
 def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
@@ -3850,6 +4404,7 @@ def main(argv=None) -> int:
     run(25, phase_sync_audit, report, cell60_lanes, mesh60)
     lm_attention, lm_ssd = run(26, phase_lm_serving, report)
     family_attention = run(27, phase_lm_families, report)
+    run(28, phase_lm_training, report)
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small, *wide]),
         kernel_entry("stacked_count_stats", report, service,

@@ -39,7 +39,7 @@ The pass is static, in three stages:
    tensor methods are device values; taint flows through assignments,
    unpacking, ``for`` and comprehension targets.  Static metadata does
    not taint: ``.shape``, ``.dtype``, ``.device``, ``.ndim``,
-   ``.numel()``, ``.dim()``, ``.size()``, ``.is_contiguous()``,
+   ``.requires_grad``, ``.numel()``, ``.dim()``, ``.size()``, ``.is_contiguous()``,
    ``.data_ptr()``, ``len()``; ``is None`` and ``isinstance`` tests are
    host-side.
 3. **Hazards** (one finding each): ``.item()``, ``.tolist()``,
@@ -82,6 +82,7 @@ ROUND_LOOP_ROOTS: Tuple[str, ...] = (
     "repro_torch.service.batch_problem:StackedSpec.bind.evaluate_batch",
     "repro_torch.serve.engine:make_prefill_step.step",
     "repro_torch.serve.engine:make_decode_step.step",
+    "repro_torch.train.step:make_train_step.step",
 )
 
 #: The package whose methods and closures attribute calls resolve to.
@@ -92,7 +93,7 @@ _TENSOR_TYPES = re.compile(r"Tensor|Lanes|State\b|Tables\b|PyTree|NodeEval")
 
 #: Attribute reads and method calls that are static metadata.
 _STATIC_ATTRS = {"shape", "dtype", "device", "ndim", "is_cuda", "layout",
-                 "type", "index"}
+                 "type", "index", "requires_grad"}
 _STATIC_METHODS = {"numel", "dim", "size", "is_contiguous", "data_ptr",
                    "element_size", "stride", "get_device", "ndimension",
                    "nelement", "is_floating_point"}

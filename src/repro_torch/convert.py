@@ -132,3 +132,51 @@ def lm_params(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
         groups.append(gp)
     out["layers"] = groups
     return tree_map(lambda leaf: tensor(leaf, device), out)
+
+
+def _restack(tree: Any, stack) -> Any:
+    """``tree`` with every list of like trees made one tree whose leaves
+    are ``stack`` of the list's leaves (inner lists first)."""
+    if isinstance(tree, dict):
+        return {k: _restack(v, stack) for k, v in tree.items()}
+    if isinstance(tree, list):
+        items = [_restack(x, stack) for x in tree]
+        return _zip(items, stack)
+    return tree
+
+
+def _zip(items, stack):
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: _zip([it[k] for it in items], stack) for k in first}
+    return stack(items)
+
+
+def lm_tree(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``lm_params``: the port's LM tree (or any tree of
+    its structure, such as AdamW's moments) as the reference's, nested
+    dicts of numpy arrays with the group axis of ``layers`` stacked (and
+    a hybrid group's mamba layers under it), each leaf bit for bit.
+    numpy has no bfloat16: a bfloat16 leaf is refused."""
+    from repro_torch.core.api import tree_map
+
+    def host(leaf: torch.Tensor) -> np.ndarray:
+        if leaf.dtype == torch.bfloat16:
+            raise TypeError("lm_tree: numpy has no bfloat16; cast the "
+                            "tree to float32 first")
+        return leaf.detach().cpu().numpy()
+    return _restack(tree_map(host, params), np.stack)
+
+
+def lm_paths(params: Dict[str, Any]) -> list:
+    """The key paths of ``lm_tree(params)``'s leaves in the reference's
+    flatten order (jax sorts a dict's keys), computed from the structure
+    alone."""
+    ref = _restack(params, lambda items: items[0])
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return [p for k in sorted(tree) for p in walk(tree[k],
+                                                          path + (k,))]
+        return [path]
+    return walk(ref, ())

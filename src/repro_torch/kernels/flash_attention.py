@@ -11,17 +11,26 @@ any S (a ragged last tile is masked) and are built for the head dims of
 by zero-padding q, k and v along hd to the next built one (zero columns
 change neither q . k nor the kept columns of p . v) and slicing the
 output back, the scale still 1/sqrt of the true hd.
+
+On the card the kernel's output is made differentiable by
+``plain_grad.PlainGrad`` when grad mode is on and an input requires grad
+(training): the forward is the kernel, the backward PyTorch's gradient of
+the plain version recomputed from the saved inputs.  The plain version
+never gives a forward value on the card; it enters there only inside that
+backward.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.plain_grad import PlainGrad
 
 #: Head dims the CUDA kernel is built for: those of the repo's model
 #: configurations (src/repro/configs).  Smaller head dims are padded up to
@@ -61,16 +70,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal attention, head h reading KV head h // (H / G), with an
     optional sliding ``window`` and tanh ``softcap``; ``query_scale``
     replaces 1/sqrt(hd).  ``block_q`` / ``block_k`` are the plain
-    version's blocks: the CUDA kernels have their own tiles and ignore
-    them."""
+    version's blocks (the CPU, and the card's backward): the CUDA kernels
+    have their own tiles and ignore them."""
     _check(q, k, v)
+    plain = functools.partial(ref.flash_attention_ref, window=window,
+                              softcap=softcap, query_scale=query_scale,
+                              block_q=block_q, block_k=block_k)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, window=window,
-                                       softcap=softcap,
-                                       query_scale=query_scale,
-                                       block_q=block_q, block_k=block_k)
+        return plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for {q.device}")
+    kernel = functools.partial(_kernel, window=window, softcap=softcap,
+                               query_scale=query_scale)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return PlainGrad.apply(kernel, plain, q, k, v)
+    return kernel(q, k, v)
+
+
+def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            window: Optional[int], softcap: float,
+            query_scale: Optional[float]) -> torch.Tensor:
+    """The CUDA kernel's launch on CUDA tensors."""
     b, s, h, hd = q.shape
     if hd > HEAD_DIMS[-1]:
         raise ValueError(f"flash_attention kernel takes hd <= "

@@ -9,16 +9,26 @@ working set fits the card's shared memory, and the configs' head widths,
 P up to 64.  Its three passes (each chunk's own state, the carry from
 chunk to chunk, the output) go through one C entry point, one launch;
 the wrapper allocates the chunks' states between the passes.
+
+On the card the kernel's outputs are made differentiable by
+``plain_grad.PlainGrad`` when grad mode is on and an input requires grad
+(training): the forward is the kernel, the backward PyTorch's gradient of
+the plain version recomputed from the saved inputs (only through the
+outputs that receive a gradient: train mode uses y, not the state).  The
+plain version never gives a forward value on the card; it enters there
+only inside that backward.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.plain_grad import PlainGrad
 
 #: Largest chunk and head width (P) the CUDA kernel takes.
 MAX_CHUNK = 128
@@ -62,10 +72,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     b, c: [B, S, G, N].  Returns (y [B, S, H, P] in x's dtype, final
     state [B, H, N, P] f32).  Head h reads B/C group h // (H / G)."""
     _check(x, dt, a, b, c, d)
+    plain = functools.partial(ref.ssd_scan_ref, chunk=chunk)
     if x.device.type == "cpu":
-        return ref.ssd_scan_ref(x, dt, a, b, c, d, chunk=chunk)
+        return plain(x, dt, a, b, c, d)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan has no kernel for {x.device}")
+    kernel = functools.partial(_kernel, chunk=chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c, d)):
+        return PlainGrad.apply(kernel, plain, x, dt, a, b, c, d)
+    return kernel(x, dt, a, b, c, d)
+
+
+def _kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+            chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's launch on CUDA tensors."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if not 1 <= chunk <= MAX_CHUNK or p > MAX_P:

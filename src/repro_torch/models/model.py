@@ -26,16 +26,27 @@ every KV site.
 The audio family (musicgen) takes tokens [B, S, CB]: the codebooks'
 embeddings summed, and one head per codebook (logits [B, S, CB, V]).
 The vlm family (internvl2) takes ``vision`` [B, V, D] embeddings at
-prefill, in place of the first V positions; decode takes none.
+prefill and in training, in place of the first V positions; decode takes
+none.
+
+Train mode runs each group under the configuration's ``remat`` policy
+(``_remat``): ``"full"`` keeps only the group's input and recomputes the
+group in the backward, ``"dots"`` keeps the outputs of the 2-D matrix
+products (``aten.mm``) and recomputes the rest, ``"none"`` keeps
+everything.  ``loss_fn`` is the causal LM's cross entropy (``xent``) over
+the reference's batch dict.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.api import tree_map
 from repro_torch.models import blocks
@@ -180,21 +191,49 @@ def _stack(items: List[Any]) -> Any:
     return torch.stack(items)
 
 
+def _save_mm(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``"dots"``: keep the 2-D matrix products' outputs (the reference's
+    ``checkpoint_dots_with_no_batch_dims``; a batched product is
+    ``aten.bmm``), recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, group, h: torch.Tensor) -> torch.Tensor:
+    """``group(h)`` under ``cfg.remat`` (the reference's ``_remat_wrap``).
+    The forward draws no random numbers, so no RNG state is kept."""
+    if cfg.remat == "none":
+        return group(h)
+    if cfg.remat == "dots":
+        return checkpoint(group, h, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_mm))
+    if cfg.remat == "full":
+        return checkpoint(group, h, use_reentrant=False,
+                          preserve_rng_state=False)
+    raise ValueError(f"{cfg.name}: unknown remat policy {cfg.remat!r}")
+
+
 def run_layers(cfg: ArchConfig, params: PyTree, h: torch.Tensor, ctx: Ctx,
                cache: Optional[PyTree] = None
                ) -> Tuple[torch.Tensor, Optional[PyTree]]:
     """The groups in turn.  Prefill returns the new cache (stacked over
     groups); decode writes ``cache`` in place and returns it; train
-    returns no cache."""
+    returns no cache and runs each group under ``cfg.remat``."""
     shared = params.get("shared")
+    if ctx.mode == "train":
+        for gp in params["layers"]:
+            h = _remat(cfg, lambda x, gp=gp: _group(cfg, ctx, shared, gp,
+                                                    x, None)[0], h)
+        return h, None
     caches = []
     for i, gp in enumerate(params["layers"]):
         gcache = None if cache is None else tree_map(lambda buf: buf[i],
                                                      cache)
         h, nc = _group(cfg, ctx, shared, gp, h, gcache)
         caches.append(nc)
-    if ctx.mode == "train":
-        return h, None
     if ctx.decode:
         return h, cache
     return h, _stack(caches)
@@ -232,6 +271,34 @@ def forward(cfg: ArchConfig, params: PyTree, tokens: torch.Tensor,
     h = _embed(cfg, params, tokens, vision)
     h, _ = run_layers(cfg, params, h, ctx)
     return logits_fn(cfg, params, h)
+
+
+# ---------------------------------------------------------------------------
+# Loss (causal LM; the data pipeline gives the labels shifted).
+# ---------------------------------------------------------------------------
+
+
+def xent(logits: torch.Tensor, labels: torch.Tensor,
+         vocab: int) -> torch.Tensor:
+    """The mean cross entropy of ``logits`` [..., V] against ``labels``
+    [...], in float32: the log-sum-exp around the max, the max held
+    constant in the gradient (the reference's ``stop_gradient``).  The
+    label's logit is gathered where the reference sums a one-hot product;
+    the value is the same.  ``vocab`` is V, kept for the reference's
+    signature."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return (lse - ll).mean()
+
+
+def loss_fn(cfg: ArchConfig, params: PyTree,
+            batch: Dict[str, torch.Tensor], ctx: Ctx) -> torch.Tensor:
+    """The loss of one batch (the reference's dict: ``tokens``,
+    ``labels`` and, for vlm, ``vision``)."""
+    logits = forward(cfg, params, batch["tokens"], ctx, batch.get("vision"))
+    return xent(logits, batch["labels"], cfg.vocab)
 
 
 # ---------------------------------------------------------------------------

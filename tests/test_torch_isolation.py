@@ -45,7 +45,12 @@ def test_port_sources_import_no_jax_or_reference():
                 "models/config.py", "models/params.py", "models/layers.py",
                 "models/blocks.py", "models/model.py", "configs/__init__.py",
                 "configs/zamba2_2_7b.py", "serve/__init__.py",
-                "serve/engine.py", "serve/driver.py", "launch/serve.py"):
+                "serve/engine.py", "serve/driver.py", "launch/serve.py",
+                "kernels/plain_grad.py", "train/__init__.py",
+                "train/optim.py", "train/step.py", "train/checkpoint.py",
+                "train/compression.py", "data/__init__.py",
+                "data/pipeline.py", "distributed/__init__.py",
+                "distributed/pipeline_parallel.py", "launch/train.py"):
         assert PORT / new in files, new
     bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
            for p in files for line, root in _imported_roots(p)
@@ -70,6 +75,12 @@ def test_port_sources_import_no_jax_or_reference():
     "repro_torch.serve",
     "repro_torch.launch.serve",
     "repro_torch.configs",
+    "repro_torch.train",
+    "repro_torch.train.checkpoint",
+    "repro_torch.train.compression",
+    "repro_torch.data.pipeline",
+    "repro_torch.distributed.pipeline_parallel",
+    "repro_torch.launch.train",
 ])
 def test_port_imports_with_jax_blocked(module):
     """A fresh interpreter with ``jax`` and ``repro`` made unimportable

@@ -766,6 +766,8 @@ PORT_ONLY_MODULES = {
     "serve": "the LM serving entry points (Request, BatchedServer, the step "
              "factories); the reference snapshots its solver front door "
              "only",
+    "train": "the LM training entry points (AdamW, the step factory); the "
+             "reference snapshots its solver front door only",
 }
 
 
@@ -791,7 +793,8 @@ def test_every_export_is_in_the_snapshot():
     import repro_torch.analysis as analysis
     import repro_torch.obs as obs
     import repro_torch.serve as serve
-    for mod in (analysis, obs, serve):
+    import repro_torch.train as train
+    for mod in (analysis, obs, serve, train):
         assert set(mod.__all__) == sections[mod.__name__]
 
 

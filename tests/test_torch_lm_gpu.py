@@ -8,7 +8,13 @@ expert ids equal except on near-ties (``models.moe.near_ties``), which are
 counted and printed; where there is one, the end-to-end check gives way to
 a layer-by-layer one (each layer on the card fed the CPU's input to it).
 And ``flash_attention`` at head dims 16 to 96 through the kernel against
-its plain version.  This file imports neither ``jax`` nor ``repro``:
+its plain version.  Training: the kernels' gradient Function
+(``kernels/plain_grad.py``) on the card, its value within the kernels'
+tolerances and every input's gradient bitwise that of autograd through
+the plain version; one training step of the zamba2 smoke configuration on
+the card against the CPU, every parameter leaf given a non-zero gradient
+on the card (the gradients the kernels' outputs once dropped).  This file
+imports neither ``jax`` nor ``repro``:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_lm_gpu.py
 
@@ -29,6 +35,10 @@ from repro_torch.models import blocks, model, moe
 from repro_torch.core.api import tree_leaves, tree_map
 from repro_torch.serve import (BatchedServer, Request, make_decode_step,
                                make_prefill_step)
+from repro_torch.data import pipeline
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.train import step as tstep
+from repro_torch.train.optim import adamw_init
 
 TOL = 0.08
 S, STEPS = 40, 3
@@ -222,3 +232,135 @@ def test_flash_attention_takes_every_head_dim_up_to_128(hd, dtype):
     wide = torch.zeros((1, 8, 2, 160), dtype=dtype, device="cuda")
     with pytest.raises(ValueError, match=r"hd <= 128"):
         flash.flash_attention(wide, wide, wide)
+
+
+SSD_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+#: One training step card against CPU (bf16 compute): the loss within 1e-2
+#: relative, the gradient norm and the whole gradient within 5e-2
+#: normalised error, the parameters after the step within 2 lr + 1e-6;
+#: the gradients in float32 compute: the loss and every leaf within 1e-2
+#: (bf16's rounding, summed with cancellation into a small leaf, can move
+#: such a leaf by more than the whole: the per-leaf check is made in
+#: float32).
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_F32_TOL = 1e-2, 5e-2, 1e-2
+
+
+def _grads_equal(out, want, ins, gen):
+    g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    mine = torch.autograd.grad(out, ins, g)
+    theirs = torch.autograd.grad(want, ins, g)
+    return [bool(torch.equal(a, b)) for a, b in zip(mine, theirs)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h, g, window, softcap", [(8, 8, None, 0.0),
+                                                   (8, 2, 40, 0.0),
+                                                   (4, 1, None, 30.0)])
+def test_flash_attention_gradients_on_the_card(h, g, window, softcap,
+                                               dtype):
+    """The kernel's value, autograd's gradient of the plain version: on
+    CUDA tensors that require grad the wrapper runs the Function."""
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s, hd = 2, 200, 80
+    ins = [torch.randn((b, s, n, hd), generator=gen, device="cuda")
+           .to(dtype).requires_grad_() for n in (h, g, g)]
+    kw = dict(window=window, softcap=softcap, block_q=64, block_k=64)
+    before = _build.LAUNCHES["flash_attention"]
+    out = flash.flash_attention(*ins, **kw)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert type(out.grad_fn).__name__ == "PlainGradBackward"
+    want = ref.flash_attention_ref(*ins, **kw)
+    tol = FLASH_TOL[dtype]
+    assert torch.allclose(out.float(), want.float(), rtol=tol, atol=tol)
+    assert all(_grads_equal(out, want, ins, gen))
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_gradients_on_the_card(dtype):
+    need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, s, h, p, g, n = 2, 300, 8, 64, 2, 64
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (b, s, h), generator=gen, device="cuda") - 4.0)
+    a = -torch.rand(h, generator=gen, device="cuda") - 0.5
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device="cuda")
+              .to(dtype) for _ in range(2))
+    d = torch.rand(h, generator=gen, device="cuda")
+    ins = [t.requires_grad_() for t in (x, dt, a, bm, cm, d)]
+    y, state = ssd.ssd_scan(*ins, chunk=64)
+    assert type(y.grad_fn).__name__ == "PlainGradBackward"
+    y_want, state_want = ref.ssd_scan_ref(*ins, chunk=64)
+    tol = SSD_TOL[dtype]
+    assert torch.allclose(y.float(), y_want.float(), rtol=tol, atol=tol)
+    assert torch.allclose(state, state_want, rtol=1e-4, atol=1e-4)
+    assert all(_grads_equal(y, y_want, ins, gen))
+
+
+def _train_step(cfg, params, batch, dev):
+    """One step on ``dev``: (metrics, gradient leaves, new parameters),
+    all on the host in float32."""
+    p = tree_map(lambda x: x.to(dev, copy=True), params)
+    grads = []
+    orig = tstep.loss_and_grads
+
+    def keep(loss, cparams, b):
+        value, g = orig(loss, cparams, b)
+        grads.append(g)
+        return value, g
+    tstep.loss_and_grads = keep
+    try:
+        step = tstep.make_train_step(cfg, microbatches=1, block_q=16,
+                                     block_k=16)
+        new, _, m = step(p, adamw_init(p), {k: v.to(dev) for k, v in
+                                            batch.items()}, 1)
+    finally:
+        tstep.loss_and_grads = orig
+    host = lambda t: t.to("cpu", torch.float32)  # noqa: E731
+    loss32, grads32 = tstep.loss_and_grads(
+        tstep.make_loss(cfg, 16, 16),
+        tree_map(lambda x: x.to(dev, copy=True), params),
+        {k: v.to(dev) for k, v in batch.items()})
+    return ({k: float(v) for k, v in m.items()},
+            [None if g is None else host(g) for g in tree_leaves(grads[0])],
+            [host(x) for x in tree_leaves(new)], float(loss32),
+            [host(g) for g in tree_leaves(grads32)])
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_equals_cpu():
+    """zamba2's smoke configuration, one step of ``make_train_step`` from
+    the same masters and batch: every leaf's gradient present and not
+    all zero on the card, one launch of each kernel a site (remat
+    "none") in the step and one in the float32 gradient, and the card
+    within the stated tolerances of the CPU."""
+    need_card()
+    cfg = configs.smoke("zamba2-2.7b")
+    params = tstep.master_params(cfg, model.init(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    batch = pipeline.synthetic_batch(cfg, 2, S, seed=1, step=0)
+    before = dict(_build.LAUNCHES)
+    card = _train_step(cfg, params, batch, "cuda")
+    launched = {k: _build.LAUNCHES[k] - before[k]
+                for k in ("flash_attention", "ssd_scan")}
+    assert launched == {"flash_attention": 2 * model.n_groups(cfg),
+                        "ssd_scan": 2 * cfg.n_layers}
+    cpu = _train_step(cfg, params, batch, "cpu")
+    assert len(card[1]) == len(tree_leaves(params))
+    assert all(g is not None and bool(g.abs().max() > 0) for g in card[1])
+    (cm, cg, cp, cl32, cg32), (pm, pg, pp, pl32, pg32) = card, cpu
+    assert abs(cm["loss"] - pm["loss"]) <= TRAIN_LOSS_TOL * abs(pm["loss"])
+    assert abs(cm["grad_norm"] - pm["grad_norm"]) <= \
+        TRAIN_GRAD_TOL * pm["grad_norm"]
+    whole = [torch.cat([g.ravel() for g in gs]) for gs in (cg, pg)]
+    assert float((whole[0] - whole[1]).norm() / whole[1].norm()) <= \
+        TRAIN_GRAD_TOL
+    bound = 2 * pm["lr"] + 1e-6
+    assert max(float((x - y).abs().max()) for x, y in zip(cp, pp)) <= bound
+    assert abs(cl32 - pl32) <= TRAIN_F32_TOL * abs(pl32)
+    for x, y in zip(cg32, pg32):
+        assert float((x - y).norm() / y.norm()) <= TRAIN_F32_TOL
