@@ -171,10 +171,25 @@ Phases (any failure raises and exits non-zero):
      full width and depth, 20 steps at 8 x 256 resumed from its step-10
      checkpoint to the unbroken run's losses; ``compressed_psum`` and
      ``pipeline_forward`` on 4 shards of ``cuda:0`` against the CPU's;
+ 29. the dry run (``repro_torch.launch.dryrun``), started after phase 1
+     on the host's CPU in three processes of its own with the card hidden
+     (the launcher's ``--all``; ``--dry-run train_4x1024`` and
+     ``--dry-run solver``) and collected here: each of the 33 (arch x
+     shape) cells' peak, ``fits`` against the card's ``total_memory``,
+     dominant roofline term and trace time; the solver round on 16 x 16
+     placeholder shards, the bytes a shard sends against its compute and
+     memory terms; the modelled peaks of ``DRYRUN_MEASURED`` (phase 28's
+     step and four cells run on the card through the same step on zeros)
+     against ``max_memory_allocated`` within ``PEAK_TOL`` or
+     ``PEAK_SLACK``, the roofline time beside the measured step (not
+     gated); ``examples/torch_guided_decode.py`` on the card (its
+     attention on ``flash_attention``) against the CPU from the same
+     parameters; phase 29's own seconds;
      then the ``kernels`` line for all six kernels (``launches`` of the
-     LM kernels: phases 26 and 27's serving runs and phase 28's training
-     runs), and the seconds each phase took.  The CPU's side of phases 19, 20 and 22 runs in three
-     processes of its own (``--cpu-twin``) while the card runs 19-24.
+     LM kernels: phases 26 and 27's serving runs, phase 28's training
+     runs and phase 29's), and the seconds each phase took.  The CPU's
+     side of phases 19, 20 and 22 runs in three processes of its own
+     (``--cpu-twin``) while the card runs 19-24.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -184,6 +199,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import ctypes
 import json
@@ -202,12 +218,11 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-# The H100's rates and the count kernels' roofline, kept with the
-# autotuner's cost model: one source for its predictions and the bounds
-# below.
+# The H100's rates, kept with the autotuner's cost model; every bound
+# below is a kernel's cost function (``<kernel>.cost`` /
+# ``bitset_ops.<kernel>_cost``), the one the dry run's roofline reads.
 from repro_torch.kernels.autotune import (  # noqa: E402
-    HBM_BYTES_PER_S, LOGIC_PER_CLOCK_PER_SM, PEAK_FLOPS,
-    POPC_PER_CLOCK_PER_SM, SFU_PER_CLOCK_PER_SM, popcount_issue_s, roofline)
+    HBM_BYTES_PER_S, PEAK_FLOPS, SFU_PER_CLOCK_PER_SM, popcount_issue_s)
 
 KERNELS = ("count_stats", "stacked_count_stats", "popcount_reduce",
            "masked_row_reduce", "flash_attention", "ssd_scan")
@@ -440,6 +455,34 @@ TRAIN_F32_TOL = 1e-2
 TRAIN_RESUME = ("mamba2-130m", 8, 256, 20, 10)
 TRAIN_RESUME_TOL = 1e-3
 TRAIN_MESH = 4
+#: Phase 29, the dry run (``repro_torch.launch.dryrun``), on the host's
+#: CPU in processes of its own (``--dry-run PART PATH`` and the
+#: launcher's ``--all``) started after phase 1 and collected in phase 29
+#: (``DRYRUN_WAIT_S`` at most from their start).  ``DRYRUN_MEASURED``:
+#: (arch, shape, card batch) modelled and measured on the card: phase
+#: 28's training step (its measured peak), then four cells of ``--all``;
+#: each modelled peak within ``PEAK_TOL`` of the measured one, or within
+#: ``PEAK_SLACK`` bytes where that is larger (cuBLAS's workspace is a
+#: fixed cost that weighs on the small cells).  ``DRYRUN_TRAIN``: phase
+#: 28's settings.  ``DRYRUN_SOLVER``: the solver round on the production
+#: mesh (16 x 16 placeholder shards, 8 lanes each, 256 steps), its
+#: instance cut to n = 64: each placeholder's replay of its received
+#: tasks, one ``apply`` per index position, costs the host about 8 s at
+#: the reference's n = 512.  ``GUIDED_COST_TOL``: the guided decode's
+#: optimum on the card against the CPU's, in the example's integer units
+#: (1e-3 nats) over its ``DEPTH`` steps.
+DRYRUN_TAG = "chip"
+DRYRUN_WAIT_S = 900
+DRYRUN_TRAIN = dict(microbatches=1, block_q=64, block_k=64)
+DRYRUN_MEASURED = (("zamba2-2.7b", "train_4x1024", TRAIN_BATCH),
+                   ("zamba2-2.7b", "prefill_32k", 1),
+                   ("mamba2-130m", "train_4k", 1),
+                   ("mamba2-130m", "decode_32k", 1),
+                   ("mamba2-130m", "long_500k", 1))
+DRYRUN_SOLVER = dict(instance="reg:64:4:1")
+PEAK_TOL = 0.20
+PEAK_SLACK = 64 * 2 ** 20
+GUIDED_COST_TOL = 64
 #: q and k are drawn at this scale, so the scores scale * q.k spread by
 #: about 6 (held at MIN_SCORE_STD or more): the softmax is peaked, a
 #: window changes which key wins, and the softcap bends the largest
@@ -772,13 +815,12 @@ def device_busy(fn):
 
 # -- phase 5 ----------------------------------------------------------------
 
-def rate_bound(ops, ops_per_s, bytes_moved):
-    """(bound in ms, what bounds it): the larger of the work over the
-    card's peak rate for it and the bytes over HBM's rate."""
-    ops_s = ops / ops_per_s
-    bytes_s = bytes_moved / HBM_BYTES_PER_S
-    return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes")
+def rate_bound(cost):
+    """(bound in ms, what bounds it) of a kernel's ``KernelCost``: the
+    larger of its operations at the card's peak rate for them and its
+    bytes over HBM's rate."""
+    seconds, bound_by = cost.bound()
+    return seconds * 1e3, bound_by
 
 
 def events_ms(fn, iters):
@@ -850,12 +892,13 @@ def kernel_times(table, mask, valid, clock_hz, sms):
     n, w = table.shape
     lanes = mask.shape[0]
     n_valid = int(bit_set(valid, n).sum())
-    rl = roofline(n, w, lanes, sms=sms, clock_hz=clock_hz)
+    cost = bitset_ops.count_stats_cost(table, mask, valid, sms=sms,
+                                       clock_hz=clock_hz)
     return measure("count_stats",
                    lambda: bitset_ops.count_stats(table, mask, valid),
                    lambda: ref.count_stats_ref(table, mask, valid), 200, 20,
-                   rl.seconds * 1e3, rl.bound_by, popcounts=n_valid * w,
-                   bytes=rl.nbytes, popc_bound_ms=popcount_issue_s(
+                   *rate_bound(cost), popcounts=n_valid * w,
+                   bytes=cost.nbytes, popc_bound_ms=popcount_issue_s(
                        n_valid * w, sms, clock_hz) * 1e3,
                    n=n, w=w, L=lanes, valid_pairs=n_valid)
 
@@ -1268,17 +1311,18 @@ def stacked_times(tables, inst, mask, valid, clock_hz, sms):
     k, n, w = tables.shape
     lanes = mask.shape[0]
     n_valid = int(bit_set(valid, n)[inst >= 0].sum())
-    rl = roofline(n, w, lanes, k, valid_pairs=n_valid, sms=sms,
-                  clock_hz=clock_hz)
+    cost = bitset_ops.stacked_count_stats_cost(
+        tables, inst, mask, valid, valid_pairs=n_valid, sms=sms,
+        clock_hz=clock_hz)
     return measure("stacked_count_stats",
                    lambda: bitset_ops.stacked_count_stats(tables, inst, mask,
                                                           valid),
                    lambda: ref.stacked_count_stats_ref(tables, inst, mask,
                                                        valid), 200, 20,
-                   rl.seconds * 1e3, rl.bound_by, popcounts=rl.popcounts,
-                   bytes=rl.nbytes, popc_bound_ms=rl.popcount_s * 1e3,
-                   bytes_bound_ms=rl.bytes_s * 1e3, K=k, n=n, w=w, L=lanes,
-                   valid_pairs=n_valid)
+                   *rate_bound(cost), popcounts=n_valid * w,
+                   bytes=cost.nbytes, popc_bound_ms=cost.op_s * 1e3,
+                   bytes_bound_ms=cost.nbytes / HBM_BYTES_PER_S * 1e3, K=k,
+                   n=n, w=w, L=lanes, valid_pairs=n_valid)
 
 
 def phase_stacked_timing(report, live):
@@ -1338,7 +1382,7 @@ def reduce_inputs(rng, n, lanes):
 def phase_bitset_library(report):
     """``ops.popcount_reduce`` and ``ops.masked_row_reduce`` at cell60's
     shape (the library's call, counted), then parity and timing."""
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, bitset_ops, ops, ref
     from repro_torch.kernels.ref import bit_set
     from repro_torch.problems.graphs import full_mask
     rng = np.random.RandomState(11)
@@ -1385,8 +1429,8 @@ def phase_bitset_library(report):
     clock_hz, sms = report["clock_max_sm_hz"], report["sms"]
     w = table.shape[1]
     popcounts = lanes * w
-    pc_bound = rate_bound(popcounts, POPC_PER_CLOCK_PER_SM * sms * clock_hz,
-                          4 * (lanes * w + lanes))
+    pc_bound = rate_bound(bitset_ops.popcount_reduce_cost(
+        select, sms=sms, clock_hz=clock_hz))
     floor = launch_floor(select)
     pc = measure(
         "popcount_reduce", lambda: ops.popcount_reduce(select),
@@ -1394,13 +1438,12 @@ def phase_bitset_library(report):
         n=n, w=w, L=lanes, popcounts=popcounts, floor_ms=floor["ms"],
         floor_ms_source=floor["ms_source"],
         floor_ms_events=floor["ms_events"])
-    # One LOP3 takes three inputs, so it folds two selected rows into a
-    # word's accumulator (acc | a | b, acc & a & b): the least work is
-    # selected * w / 2 LOP3s at the 32-bit logic rate.
+    # selected * w / 2 LOP3s at the 32-bit logic rate, or the bytes
+    # (``bitset_ops.masked_row_reduce_cost``).
     selected = int(bit_set(select, n).sum())
     lop3s = (selected * w + 1) // 2
-    mr_bound = rate_bound(lop3s, LOGIC_PER_CLOCK_PER_SM * sms * clock_hz,
-                          4 * (n * w + 2 * lanes * w))
+    mr_bound = rate_bound(bitset_ops.masked_row_reduce_cost(
+        table, select, selected=selected, sms=sms, clock_hz=clock_hz))
     mr = {op: measure(
         "masked_row_reduce",
         lambda: ops.masked_row_reduce(table, select, op=op),
@@ -1467,13 +1510,6 @@ def note_error(parity, err, rel):
     parity["max_rel_err"] = max(parity.get("max_rel_err", 0.0), rel)
 
 
-def attention_pairs(s, window):
-    """Visible (query, key) pairs of causal attention over s positions."""
-    q = torch.arange(s, dtype=torch.float64)
-    vis = q + 1 if window is None else torch.clamp(q + 1, max=window)
-    return int(vis.sum())
-
-
 def attention_inputs(gen, case):
     name, b, s, h, g, hd, window, softcap, qs, dt = case
     return [randn(gen, (b, s, n_, hd), DTYPES[dt], scale)
@@ -1533,23 +1569,23 @@ def time_attention(report, name, q, k, v, out, window, softcap, qs,
     query scale, SDPA (held against the kernel's ``out``): causal, a
     window as a boolean [S, S] mask with k, v repeated to H heads before
     the timing (SDPA has no window argument); with the bound from the
-    inputs: the
+    inputs (``flash_attention.cost``): the
     tensor cores' (or CUDA cores') rate for its products, the SFU's for
     its exps (and tanh), or the bytes."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_attention, ops, ref
     b, s, h, hd = q.shape
     g = k.shape[2]
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    pairs = h * b * attention_pairs(s, window)
-    flops = 4 * hd * pairs
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    bound_ms, bound_by = rate_bound(flops, PEAK_FLOPS[DTYPES[dt]], nbytes)
+    cost = flash_attention.cost(q, k, v, window=window, softcap=softcap,
+                                sms=report["sms"],
+                                clock_hz=report["clock_max_sm_hz"])
+    flops, nbytes = cost.flops, cost.nbytes
+    bound_ms, bound_by = rate_bound(cost)
     # An exp per pair on the SFU, and a tanh with a softcap.
-    sfu_ops = pairs * (2 if softcap else 1)
+    sfu_ops = h * b * flash_attention.causal_pairs(s, window) * (
+        2 if softcap else 1)
     sfu_ms = sfu_ops / (SFU_PER_CLOCK_PER_SM * report["sms"]
                         * report["clock_max_sm_hz"]) * 1e3
-    if sfu_ms > bound_ms:
-        bound_ms, bound_by = sfu_ms, "operations"
     library = None
     if window is None and softcap == 0.0 and qs is None:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1746,29 +1782,19 @@ def ssd_parity(parity, case, args, y, state, planted=False):
     return (y_err, y_rel, st_err), caught
 
 
-def ssd_cost(b, s, h, p, n, chunk, args):
-    """(flops, bytes) of the scan: per chunk and head, the lower triangle
-    of C B^T and of its product with x, C S and the state update; each
-    input read once, y and the state written once."""
-    tri = chunk * (chunk + 1) // 2
-    chunks = -(-s // chunk)
-    flops = b * h * chunks * (2 * tri * n + 2 * tri * p + 4 * chunk * n * p)
-    nbytes = sum(t.numel() * t.element_size() for t in args)
-    nbytes += args[0].numel() * args[0].element_size() + 4 * b * h * n * p
-    return flops, nbytes
-
-
 def time_ssd(name, args, chunk, **extra):
     """``ops.ssd_scan`` on ``args`` (x, dt, a, B, C, d) timed over 10
     launches, as the sum of its three passes' kernels, beside its plain
-    version (once), with the bound from the inputs."""
-    from repro_torch.kernels import ops, ref
+    version (once), with the bound from the inputs
+    (``ssd_scan.cost``)."""
+    from repro_torch.kernels import ops, ref, ssd_scan
     x, b_mat = args[0], args[3]
     b, s, h, p = x.shape
     g, n = b_mat.shape[2], b_mat.shape[3]
     dt = "bf16" if x.dtype == torch.bfloat16 else "f32"
-    flops, nbytes = ssd_cost(b, s, h, p, n, chunk, args)
-    bound_ms, bound_by = rate_bound(flops, PEAK_FLOPS[DTYPES[dt]], nbytes)
+    cost = ssd_scan.cost(*args, chunk=chunk)
+    flops, nbytes = cost.flops, cost.nbytes
+    bound_ms, bound_by = rate_bound(cost)
     return measure(
         "ssd_scan", lambda: ops.ssd_scan(*args, chunk=chunk),
         lambda: ref.ssd_scan_ref(*args, chunk=chunk), 10, 1, bound_ms,
@@ -4176,6 +4202,243 @@ def phase_lm_training(report):
     report["lm_training"] = out
 
 
+# -- phase 29: the dry run ---------------------------------------------------
+
+def dryrun_part(part, path):
+    """One part of phase 29's dry run, in a process of its own on the
+    host's CPU (``--dry-run PART PATH``): ``train_4x1024`` (phase 28's
+    training step, modelled with its settings) or ``solver`` (the round
+    on the production mesh); writes its JSON to ``path``."""
+    from repro_torch.launch import dryrun, solver_dryrun
+    from repro_torch.models.config import ShapeConfig
+    torch.set_num_threads(1)
+    if part == "train_4x1024":
+        out = dryrun.run_cell(TRAIN_ARCH, ShapeConfig(
+            part, TRAIN_SEQ, TRAIN_BATCH, "train"), DRYRUN_TRAIN)
+    elif part == "solver":
+        out = solver_dryrun.run(tag=DRYRUN_TAG, **DRYRUN_SOLVER)
+    else:
+        raise ValueError(f"no dry-run part {part!r}")
+    pathlib.Path(path).write_text(json.dumps(out))
+
+
+def start_dryrun():
+    """Start phase 29's dry runs on the host's CPU, each in a process of
+    its own with the card hidden (a dry run touches no card): the
+    launcher's ``--all`` and the two ``dryrun_part`` s."""
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    cmds = {"all": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--all", "--tag", DRYRUN_TAG]}
+    for part in ("train_4x1024", "solver"):
+        cmds[part] = [sys.executable, str(ROOT / "chip_smoke.py"),
+                      "--dry-run", part, str(out / f"dryrun_{part}.json")]
+    procs = {}
+    for part, cmd in cmds.items():
+        path = out / f"dryrun_{part}.json"
+        if path.exists():
+            path.unlink()
+        log = open(out / f"dryrun_{part}.log", "w")
+        procs[part] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT, env=env,
+                                        cwd=ROOT), log)
+    # A phase that fails before phase 29 leaves them running: stop them
+    # at exit.
+    atexit.register(lambda: [p.kill() for p, _ in procs.values()
+                             if p.poll() is None])
+    return procs, time.perf_counter()
+
+
+def finish_dryrun(dry):
+    """Wait for the dry runs (at most ``DRYRUN_WAIT_S`` from their
+    start), stop any still running; each part's exit code and log."""
+    procs, t0 = dry
+    res = {}
+    for part, (proc, log) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, DRYRUN_WAIT_S
+                                  - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        res[part] = dict(rc=proc.returncode, log=(
+            ROOT / "chiprun_out" / f"dryrun_{part}.log").read_text())
+    return res
+
+
+def measured_cell(arch, shape_name, batch, memory_bytes):
+    """The dry run's cell run on the card through the same step on zeros
+    (``dryrun.input_specs(device="cuda")``): once to warm up, then once
+    between CUDA events with the peak reset just before.  (Peak bytes
+    above what the process held before the arguments, ms, the timed
+    step's launches.)"""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import shapes_for
+    cfg = configs.get(arch)
+    shape = dryrun.card_shape(
+        {x.name: x for x in shapes_for(cfg)}[shape_name], batch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    step, args = dryrun.input_specs(cfg, shape, None, memory_bytes,
+                                    device=DEV)
+    out = step(*args)
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(_build.LAUNCHES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = step(*args)
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    launched = launches_since(before)
+    del out, args, step
+    torch.cuda.empty_cache()
+    return peak, start.elapsed_time(end), launched
+
+
+def guided_decode(report):
+    """``examples/torch_guided_decode.py`` on the card and on the CPU
+    from the same parameters: the greedy path, the exact optimum through
+    ``serial_rb`` and the simulator's, the card's attention on the
+    ``flash_attention`` kernel (hd 16 padded to 64)."""
+    import importlib.util
+    from repro_torch.core.api import tree_map
+    from repro_torch.core.serial import ParallelRBSimulator, serial_rb
+    from repro_torch.kernels import _build
+    spec = importlib.util.spec_from_file_location(
+        "torch_guided_decode", ROOT / "examples" / "torch_guided_decode.py")
+    gd = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gd)
+    params, prompt = gd.init(0, "cpu")
+    runs = {}
+    for dev in ("cpu", DEV):
+        t0 = time.perf_counter()
+        before = dict(_build.LAUNCHES)
+        expand = gd.build_lattice(tree_map(lambda t: t.to(dev), params),
+                                  prompt.to(dev))
+        greedy = gd.greedy(gd.make_problem(expand))
+        best, nodes, _ = serial_rb(gd.make_problem(expand))
+        sim = ParallelRBSimulator(gd.make_problem(expand), c=8).run()
+        runs[dev] = dict(greedy_tokens=list(greedy[1]), greedy=greedy[2],
+                         best=best, nodes=nodes, sim_best=sim.best,
+                         makespan=sim.makespan,
+                         launches=launches_since(before),
+                         seconds=time.perf_counter() - t0)
+    card, cpu = runs[DEV], runs["cpu"]
+    for name, count in card["launches"].items():
+        report["launches"][name] += count
+    check(card["launches"]["flash_attention"] > 0
+          and card["sim_best"] == card["best"] <= card["greedy"]
+          and abs(card["best"] - cpu["best"]) <= GUIDED_COST_TOL,
+          f"guided decode: card {card}, CPU {cpu}")
+    return runs
+
+
+def phase_dryrun(report, dry):
+    """The dry runs started after phase 1, collected: all 33 cells' peak,
+    ``fits`` against the card's memory, dominant term and trace time;
+    the solver round's collective bytes against its compute term; the
+    modelled peaks of ``DRYRUN_MEASURED`` against the card's; the guided
+    decode on the card."""
+    from repro_torch import configs
+    from repro_torch.models.config import shapes_for
+    t0 = time.perf_counter()
+    res = finish_dryrun(dry)
+    waited = time.perf_counter() - t0
+    for part, r in res.items():
+        check(r["rc"] == 0 and "[FAIL]" not in r["log"],
+              f"dry run {part}: exit {r['rc']}\n{r['log'][-3000:]}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells, fits = {}, {}
+    for arch in configs.ARCH_IDS:
+        for shape in shapes_for(configs.get(arch)):
+            c = json.loads((ROOT / "dryrun_out" / f"{arch}__{shape.name}__"
+                            f"{DRYRUN_TAG}.json").read_text())
+            cells[arch, shape.name] = c
+            mem, r = c["memory"], c["roofline"]
+            fits[f"{arch} {shape.name}"] = mem["peak_bytes"] <= total
+            print(f"phase 29: dry run {arch} {shape.name} (B={c['batch']} "
+                  f"S={c['seq_len']}): peak "
+                  f"{mem['peak_bytes'] / 2 ** 30:.2f} GiB, fits the card's "
+                  f"{total / 2 ** 30:.2f} GiB: "
+                  f"{fits[f'{arch} {shape.name}']}; dominant "
+                  f"{r['dominant']} (compute {r['compute_s'] * 1e3:.3f} ms, "
+                  f"memory {r['memory_s'] * 1e3:.3f} ms, score "
+                  f"{r['score_bytes_per_dev'] / 1e9:.3f} GB); trace "
+                  f"{c['trace_s']:.2f} s", flush=True)
+    check(len(cells) == 33, f"dry run: {len(cells)} cells, not 33")
+    solver = json.loads((ROOT / "chiprun_out" / "dryrun_solver.json"
+                         ).read_text())
+    print(f"phase 29: solver round on {solver['mesh']} ({solver['problem']} "
+          f"{solver['instance']}, {solver['lanes_total']} lanes, "
+          f"{solver['steps_per_round']} steps): "
+          f"{solver['collective_bytes_per_round_per_dev']:.0f} bytes sent "
+          f"a shard a round ({solver['per_collective']}), collective term "
+          f"{solver['collective_s'] * 1e6:.4f} us against compute "
+          f"{solver['compute_s'] * 1e3:.4f} ms and memory "
+          f"{solver['memory_s'] * 1e3:.4f} ms; trace "
+          f"{solver['trace_s']:.1f} s", flush=True)
+
+    measured = []
+    for arch, shape, batch in DRYRUN_MEASURED:
+        if shape == "train_4x1024":
+            model = json.loads((ROOT / "chiprun_out" /
+                                "dryrun_train_4x1024.json").read_text())
+            train = report["lm_training"]
+            peak = train["peak_gib"] * 2 ** 30
+            ms = train["median_step_s"] * 1e3
+            launched = train["launches_per_step"]
+        else:
+            model = cells[configs.ALIASES.get(arch, arch), shape]
+            peak, ms, launched = measured_cell(
+                arch, shape, batch, model["memory"]["device_bytes"])
+            for name, count in launched.items():
+                report["launches"][name] += count
+        modelled = model["memory"]["peak_bytes"]
+        r = model["roofline"]
+        roof_ms = max(r["compute_s"], r["memory_s"], r["collective_s"]) * 1e3
+        row = dict(arch=arch, shape=shape, batch=batch, modelled=modelled,
+                   measured=peak, ratio=modelled / peak, roofline_ms=roof_ms,
+                   step_ms=ms, dominant=r["dominant"], launches=launched)
+        measured.append(row)
+        print(f"phase 29: {arch} {shape} B={batch}: modelled peak "
+              f"{modelled / 2 ** 30:.3f} GiB, measured "
+              f"{peak / 2 ** 30:.3f} GiB, ratio {row['ratio']:.3f}; roofline "
+              f"{roof_ms:.2f} ms ({r['dominant']}), measured step "
+              f"{ms:.2f} ms (CUDA events); launches {launched}", flush=True)
+        check(abs(modelled - peak) <= max(PEAK_TOL * peak, PEAK_SLACK),
+              f"{arch} {shape}: modelled peak {modelled} bytes, measured "
+              f"{peak}: outside {PEAK_TOL:.0%} and {PEAK_SLACK} bytes")
+
+    runs = guided_decode(report)
+    for dev, g in runs.items():
+        print(f"phase 29: guided decode on {dev}: greedy tokens "
+              f"{g['greedy_tokens']} -logprob {g['greedy'] / 1e3:.3f}; exact "
+              f"optimum {g['best'] / 1e3:.3f} ({g['nodes']} lattice nodes); "
+              f"PARALLEL-RB x8 {g['sim_best'] / 1e3:.3f} in {g['makespan']} "
+              f"ticks; launches {g['launches']}; {g['seconds']:.1f} s",
+              flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"phase 29: {seconds - waited:.1f} s of its own, "
+          f"{waited:.1f} s more waiting for the dry runs, on "
+          f"{report['card']}", flush=True)
+    report["dryrun"] = dict(fits=fits, solver=solver, measured=measured,
+                            guided_decode=runs, seconds=seconds,
+                            waited_s=waited)
+
+
 # -- driver -----------------------------------------------------------------
 
 def kernel_entry(name, report, headline, shapes, tolerance="bitwise (0)"):
@@ -4321,9 +4584,14 @@ def main(argv=None) -> int:
                          "17, in turns (default 1)")
     ap.add_argument("--cpu-twin", nargs=2, metavar=("PART", "PATH"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--dry-run", nargs=2, metavar=("PART", "PATH"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.cpu_twin:
         twin_part(*args.cpu_twin)
+        return 0
+    if args.dry_run:
+        dryrun_part(*args.dry_run)
         return 0
     if args.telemetry_repeats < 1:
         ap.error("--telemetry-repeats must be >= 1")
@@ -4354,6 +4622,7 @@ def main(argv=None) -> int:
     spills = check_spills(dict(zip(KERNELS, libs)))
     sass_diff = (sass_against(dict(zip(KERNELS, libs)), args.sass_against)
                  if args.sass_against else None)
+    dry = start_dryrun()
 
     report = dict(device=kind, card=card, build_s=build_s, sass=sass,
                   spills=spills, sass_against=sass_diff,
@@ -4405,6 +4674,7 @@ def main(argv=None) -> int:
     lm_attention, lm_ssd = run(26, phase_lm_serving, report)
     family_attention = run(27, phase_lm_families, report)
     run(28, phase_lm_training, report)
+    run(29, phase_dryrun, report, dry)
     kernels_line = {"kernels": [
         kernel_entry("count_stats", report, full, [full, live, small, *wide]),
         kernel_entry("stacked_count_stats", report, service,

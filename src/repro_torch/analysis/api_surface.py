@@ -2,11 +2,11 @@
 (counterpart of ``tools/api_surface.py``).
 
 ``repro_torch.registry``, ``.solver``, ``.service``, ``.obs``,
-``.analysis``, ``.serve`` and ``.train`` are the port's public API.  This
-tool renders each module's ``__all__`` (dataclass fields, NamedTuple
-fields, class methods, function signatures) into a canonical text and
-compares it with the checked-in snapshot ``api_surface.txt`` beside this
-file:
+``.analysis``, ``.serve``, ``.train`` and ``.roofline`` are the port's
+public API.  This tool renders each module's ``__all__`` (dataclass
+fields, NamedTuple fields, class methods, function signatures) into a
+canonical text and compares it with the checked-in snapshot
+``api_surface.txt`` beside this file:
 
   python -m repro_torch.analysis.api_surface            # check: exit 1
                                                         # and a diff on drift
@@ -31,7 +31,7 @@ from typing import List, Optional
 
 MODULES = ("repro_torch.registry", "repro_torch.solver",
            "repro_torch.service", "repro_torch.obs", "repro_torch.analysis",
-           "repro_torch.serve", "repro_torch.train")
+           "repro_torch.serve", "repro_torch.train", "repro_torch.roofline")
 SNAPSHOT = pathlib.Path(__file__).resolve().with_name("api_surface.txt")
 
 

@@ -12,7 +12,9 @@ capture as a CUDA graph.  ``chip_smoke.py`` phase 25 holds the same
 claim on the card under ``torch.cuda.set_sync_debug_mode("error")``.
 The LM serving steps (``serve.engine``'s prefill and decode step
 functions) are held to the same rule: the driver reads the host once a
-tick, outside them (phase 26 audits a decode step on the card).
+tick, outside them (phase 26 audits a decode step on the card).  So are
+the steps the dry run traces on ``meta`` (``launch.dryrun``), where a
+host read has no value to read and raises.
 
 The pass is static, in three stages:
 
@@ -83,6 +85,9 @@ ROUND_LOOP_ROOTS: Tuple[str, ...] = (
     "repro_torch.serve.engine:make_prefill_step.step",
     "repro_torch.serve.engine:make_decode_step.step",
     "repro_torch.train.step:make_train_step.step",
+    "repro_torch.launch.dryrun:input_specs.train_step",
+    "repro_torch.launch.dryrun:input_specs.prefill_step",
+    "repro_torch.launch.dryrun:input_specs.decode_step",
 )
 
 #: The package whose methods and closures attribute calls resolve to.

@@ -25,6 +25,12 @@ array does.  The collectives are copies between devices plus ``torch.cat``
 / ``amin`` / ``sum``; the host reads back one value per round, the
 open-work vector summed onto shard 0's device.
 
+A mesh of ``meta`` devices is a dry run's placeholder mesh
+(``launch.mesh.make_production_mesh``): each shard stands for a card of
+its own, so its replay runs alone (:meth:`Mesh.groups`), and each
+collective records the bytes one shard sends (``roofline.
+record_collective``) for ``roofline.analyze``.
+
 A mesh of one shard runs the single-device round: it has no other device
 to steal from.  (The reference's one-device mesh runs its cross-device
 steal against itself, a second intra-device pass counted in ``t_c``; its
@@ -38,6 +44,7 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
 
 import torch
 
+from repro_torch import roofline
 from repro_torch.core import steal
 from repro_torch.core.api import (UNVISITED, BinaryProblem, resolve_device,
                                   tree_leaves, tree_map)
@@ -96,6 +103,15 @@ class Mesh:
         """The mesh's devices, each once, in shard order."""
         return tuple(dict.fromkeys(self.devices))
 
+    def groups(self) -> Tuple[Tuple[int, ...], ...]:
+        """The shards of each card, in shard order: the shards of one
+        device together; a ``meta`` placeholder alone (each stands for a
+        card of its own)."""
+        if self.device_type == "meta":
+            return tuple((d,) for d in range(self.size))
+        return tuple(tuple(d for d, x in enumerate(self.devices) if x == dev)
+                     for dev in self.distinct())
+
     def __repr__(self) -> str:
         return f"Mesh({[str(d) for d in self.devices]})"
 
@@ -104,20 +120,21 @@ def available_devices(device_type: str, limit: int) -> List[torch.device]:
     """The devices a mesh of ``device_type`` may take: on ``cuda`` every
     card present (``limit`` does not apply: there are no more); on ``cpu``
     ``limit`` shards of the CPU, the counterpart of the reference's forced
-    host devices."""
+    host devices; on ``meta`` ``limit`` placeholder shards."""
     if device_type == "cuda":
         resolve_device("cuda")
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
-    if device_type == "cpu":
-        return [torch.device("cpu")] * max(1, int(limit))
+    if device_type in ("cpu", "meta"):
+        return [torch.device(device_type)] * max(1, int(limit))
     raise ValueError(f"no mesh of {device_type!r} devices")
 
 
 def make_mesh(n: int, device_type: str = "cuda") -> Mesh:
     """A mesh of ``n`` shards: the first ``n`` cards for ``cuda`` (raises
     when fewer exist, as ``jax.make_mesh`` does), ``n`` shards of the CPU
-    for ``cpu``."""
+    for ``cpu`` (the reference's ``make_host_mesh``), ``n`` placeholders
+    for ``meta``."""
     if n < 1:
         raise ValueError(f"a mesh needs n >= 1 shards, got {n}")
     devices = available_devices(device_type, n)
@@ -269,10 +286,12 @@ def cross_device_assign(shards: Sequence[Lanes], max_ship: int
         t = steal.thief_mask(lanes)
         donors = steal.donor_mask(lanes, steal.donor_slots(lanes))
         zeros = torch.zeros(k, dtype=torch.int32, device=lanes.idx.device)
-        summaries.append(torch.stack([
+        summary = torch.stack([
             zeros.index_add(0, safe_inst, t.to(torch.int32)),
             zeros.index_add(0, safe_inst, donors.to(torch.int32))],
-            dim=1).to(home))                                   # [K, 2]
+            dim=1)                                             # [K, 2]
+        roofline.record_collective("all-gather", summary)
+        summaries.append(summary.to(home))
         thieves.append(t)
 
     # (1) advertise: all_gather in shard order.
@@ -299,10 +318,12 @@ def cross_device_assign(shards: Sequence[Lanes], max_ship: int
         lanes, bits, tdepth, tinst, trank, valid = steal.extract_tasks(
             lanes, quota[me].to(dev), max_ship)
         grank = task_offset[me].to(dev)[tinst] + trank
-        payloads.append(torch.cat(
+        payload = torch.cat(
             [bits.to(torch.int32), tdepth[:, None], tinst[:, None],
              grank[:, None], valid[:, None].to(torch.int32)],
-            dim=1).to(home))                                   # [S, IL+4]
+            dim=1)                                             # [S, IL+4]
+        roofline.record_collective("all-gather", payload)
+        payloads.append(payload.to(home))
         extracted.append(lanes)
     world = torch.cat(payloads)                                # [D*S, IL+4]
 
@@ -336,12 +357,11 @@ def replay_per_device(problems: Sequence[BinaryProblem], mesh: Mesh,
                       shards: Sequence[Lanes],
                       received: Sequence[torch.Tensor]) -> List[Lanes]:
     """:func:`steal.replay_received` for every shard, the shards that
-    share a device joined into one batch: a replay is lane-local, so the
-    stacks are those of one replay per shard, in one pass over the index
-    per device instead of one per shard."""
+    share a device joined into one batch (:meth:`Mesh.groups`): a replay
+    is lane-local, so the stacks are those of one replay per shard, in
+    one pass over the index per device instead of one per shard."""
     out = list(shards)
-    for dev in mesh.distinct():
-        group = [d for d, x in enumerate(mesh.devices) if x == dev]
+    for group in mesh.groups():
         joined = shards[group[0]]._replace(**{
             f: tree_map(lambda *leaves: torch.cat(leaves),
                         *[getattr(shards[d], f) for d in group])
@@ -434,9 +454,14 @@ def make_distributed_round(problem, mesh: Mesh, steps_per_round: int,
         shards = replay_per_device(problems, mesh, shards,
                                    [a | b for a, b in zip(received, cross)])
         home = shards[0].idx.device
+        for s in shards:
+            roofline.record_collective("all-reduce", s.best)
         best = torch.stack([s.best.to(home) for s in shards]).amin(dim=0)
         shards = [s._replace(best=best.to(s.idx.device)) for s in shards]
-        open_work = torch.stack([_open_work(s).to(home) for s in shards]
+        opens = [_open_work(s) for s in shards]
+        for o in opens:
+            roofline.record_collective("all-reduce", o)
+        open_work = torch.stack([o.to(home) for o in opens]
                                 ).sum(dim=0, dtype=torch.int32)
         return ShardedLanes(shards), open_work
 

@@ -76,3 +76,16 @@ def synthetic_batch(cfg: ArchConfig, batch: int, seq: int, seed: int,
     """One training batch (``tokens``, ``labels`` [B, S] int32, audio
     [B, S, CB]; vlm also ``vision`` [B, V, D] bfloat16) on ``device``."""
     return batch_from_draws(cfg, *draws(cfg, batch, seq, seed, step, device))
+
+
+def input_abstract(cfg: ArchConfig, batch: int, seq: int
+                   ) -> Dict[str, torch.Tensor]:
+    """``synthetic_batch``'s stand-ins on ``meta`` (the dry run's)."""
+    shape = ((batch, seq, cfg.n_codebooks) if cfg.n_codebooks
+             else (batch, seq))
+    out = {k: torch.empty(shape, dtype=torch.int32, device="meta")
+           for k in ("tokens", "labels")}
+    if cfg.vision_tokens:
+        out["vision"] = torch.empty((batch, cfg.vision_tokens, cfg.d_model),
+                                    dtype=torch.bfloat16, device="meta")
+    return out

@@ -8,7 +8,10 @@ the CPU-only tests import every module of the port.
 
 Every wrapper launches its kernel through ``launch``, which counts the
 launch in ``LAUNCHES``: a run can show that its path went through the
-kernels.
+kernels.  On ``meta`` tensors (a dry run) a wrapper takes the same route
+and allocates the same outputs, but calls ``abstract`` in place of
+``launch``: nothing runs, nothing is counted in ``LAUNCHES``, and the
+kernel's cost goes to ``roofline.analyze``'s counter.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import tempfile
 from typing import Callable, Dict, Sequence
 
 import torch
+
+from repro_torch import roofline
 
 #: The port's CUDA kernels, one ``csrc/<name>.cu`` each.
 KERNELS = ("count_stats", "stacked_count_stats", "popcount_reduce",
@@ -144,3 +149,12 @@ def launch(name: str, argtypes: Sequence, args: Sequence, device) -> None:
     if err != 0:
         raise LaunchError(name, err)
     LAUNCHES[name] += 1
+
+
+def abstract(name: str, cost) -> None:
+    """The abstract form of a launch of ``csrc/<name>.cu`` on ``meta``
+    tensors (the counterpart of a Pallas call's ``out_shape``): the
+    wrapper has allocated the outputs; this records ``cost`` (an
+    ``autotune.KernelCost``) with the dry run's counter, if one is
+    active.  ``LAUNCHES`` is unchanged."""
+    roofline.record_kernel(name, cost)

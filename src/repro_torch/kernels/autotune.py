@@ -58,6 +58,35 @@ ROUTES = ("narrow", "wide")
 NARROW_MAX_WORDS = 32
 
 
+class KernelCost(NamedTuple):
+    """The work of one kernel launch, from its inputs (each kernel's
+    ``cost`` function beside its wrapper): ``flops`` its floating-point
+    products, ``op_s`` the least seconds of all its operations at the
+    card's peak rate for their type (products in their dtype, popcounts,
+    logic, the SFU's exps), ``nbytes`` each input read once and each
+    output written once.  ``chip_smoke.py``'s bounds and the dry run's
+    roofline both read it."""
+
+    flops: float
+    op_s: float
+    nbytes: int
+
+    def bound(self) -> Tuple[float, str]:
+        """(least seconds, what bounds them): the larger of ``op_s`` and
+        the bytes over HBM's rate."""
+        bytes_s = self.nbytes / HBM_BYTES_PER_S
+        if self.op_s >= bytes_s:
+            return self.op_s, "operations"
+        return bytes_s, "bytes"
+
+
+def issue_s(ops: int, per_clock_per_sm: int, sms: int = SMS,
+            clock_hz: float = SM_CLOCK_HZ) -> float:
+    """Seconds to issue ``ops`` instructions of a unit that completes
+    ``per_clock_per_sm`` a clock on each of ``sms`` SMs at ``clock_hz``."""
+    return ops / (per_clock_per_sm * sms * clock_hz)
+
+
 class KernelChoice(NamedTuple):
     """One decision: the route, and the milliseconds of each route when
     :func:`measured_choice` timed them."""
@@ -91,7 +120,7 @@ def popcount_issue_s(popcounts: int, sms: int = SMS,
                      clock_hz: float = SM_CLOCK_HZ) -> float:
     """Seconds to issue ``popcounts`` ``__popc`` on ``sms`` SMs at
     ``clock_hz``."""
-    return popcounts / (POPC_PER_CLOCK_PER_SM * sms * clock_hz)
+    return issue_s(popcounts, POPC_PER_CLOCK_PER_SM, sms, clock_hz)
 
 
 def roofline(n: int, w: int, lanes: int, k: int = 1, *,

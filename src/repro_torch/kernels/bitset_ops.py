@@ -12,6 +12,14 @@ from one to the other.  The reference's ``tile`` / ``stages`` /
 Pallas layout.  The two count kernels each have two routes, ``narrow``
 (w <= 32) and ``wide``; ``autotune.choose`` names the one a launch takes
 and the wrapper passes it to the launcher.
+
+On ``meta`` tensors (a dry run, ``roofline.analyze``) each wrapper takes
+the card's route with the launch replaced by its abstract form: the
+output is allocated, the kernel's cost function (``<name>_cost``) is
+recorded, nothing runs.  Where the work depends on the data (valid
+vertices, selected rows) a cost function takes the data's count as an
+argument (``chip_smoke.py`` counts it on the card) and otherwise counts
+the most the shapes allow.
 """
 
 from __future__ import annotations
@@ -69,6 +77,69 @@ def _route(name: str, route, n: int, w: int, lanes: int, k: int) -> int:
     return int(route == "wide")
 
 
+def _roofline_cost(rl: autotune.Roofline) -> autotune.KernelCost:
+    return autotune.KernelCost(0.0, rl.popcount_s, rl.nbytes)
+
+
+def count_stats_cost(table: torch.Tensor, mask: torch.Tensor,
+                     valid: torch.Tensor, *, sms: int = autotune.SMS,
+                     clock_hz: float = autotune.SM_CLOCK_HZ
+                     ) -> autotune.KernelCost:
+    """``autotune.roofline`` of one ``count_stats`` launch: its bytes
+    (its AND-popcounts are binary products on the tensor cores, which
+    bound nothing)."""
+    n, w = table.shape
+    return _roofline_cost(autotune.roofline(n, w, mask.shape[0], sms=sms,
+                                            clock_hz=clock_hz))
+
+
+def stacked_count_stats_cost(tables: torch.Tensor, inst: torch.Tensor,
+                             mask: torch.Tensor, valid: torch.Tensor, *,
+                             valid_pairs: Optional[int] = None,
+                             sms: int = autotune.SMS,
+                             clock_hz: float = autotune.SM_CLOCK_HZ
+                             ) -> autotune.KernelCost:
+    """``autotune.roofline`` of one ``stacked_count_stats`` launch: a
+    ``__popc`` per word of each of the ``valid_pairs`` valid (lane,
+    vertex) pairs of unparked lanes (default: every vertex of every
+    lane), or its bytes."""
+    k, n, w = tables.shape
+    return _roofline_cost(autotune.roofline(
+        n, w, mask.shape[0], k, valid_pairs=valid_pairs, sms=sms,
+        clock_hz=clock_hz))
+
+
+def popcount_reduce_cost(rows: torch.Tensor, *, sms: int = autotune.SMS,
+                         clock_hz: float = autotune.SM_CLOCK_HZ
+                         ) -> autotune.KernelCost:
+    """A ``__popc`` per word at its issue rate, or the rows read and the
+    counts written."""
+    lanes, w = rows.shape
+    return autotune.KernelCost(
+        0.0, autotune.issue_s(lanes * w, autotune.POPC_PER_CLOCK_PER_SM,
+                              sms, clock_hz), 4 * (lanes * w + lanes))
+
+
+def masked_row_reduce_cost(table: torch.Tensor, select: torch.Tensor, *,
+                           selected: Optional[int] = None,
+                           sms: int = autotune.SMS,
+                           clock_hz: float = autotune.SM_CLOCK_HZ
+                           ) -> autotune.KernelCost:
+    """One LOP3 takes three inputs, so it folds two selected rows into a
+    word's accumulator (acc | a | b, acc & a & b): the least work is
+    ``selected`` (lane, row) pairs (default: every row of every lane)
+    times w / 2 LOP3s at the 32-bit logic rate; or the table and the
+    selects read and the output written."""
+    n, w = table.shape
+    lanes = select.shape[0]
+    if selected is None:
+        selected = lanes * n
+    lop3s = (selected * w + 1) // 2
+    return autotune.KernelCost(
+        0.0, autotune.issue_s(lop3s, autotune.LOGIC_PER_CLOCK_PER_SM, sms,
+                              clock_hz), 4 * (n * w + 2 * lanes * w))
+
+
 def count_stats(table: torch.Tensor, mask: torch.Tensor,
                 valid: torch.Tensor, *,
                 route: Optional[str] = None) -> torch.Tensor:
@@ -83,13 +154,16 @@ def count_stats(table: torch.Tensor, mask: torch.Tensor,
         if route is not None:
             _route("count_stats", route, n, w, lanes, 1)
         return ref.count_stats_ref(table, mask, valid)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cuda", "meta"):
         raise ValueError(f"count_stats has no kernel for {table.device}")
     wide = _route("count_stats", route, n, w, lanes, 1)
     out = torch.empty((lanes, 4), dtype=torch.int32, device=table.device)
-    _build.launch("count_stats", [_PTR] * 4 + [_INT] * 4,
-                  [table.data_ptr(), mask.data_ptr(), valid.data_ptr(),
-                   out.data_ptr(), n, w, lanes, wide], table.device)
+    if table.device.type == "meta":
+        _build.abstract("count_stats", count_stats_cost(table, mask, valid))
+    else:
+        _build.launch("count_stats", [_PTR] * 4 + [_INT] * 4,
+                      [table.data_ptr(), mask.data_ptr(), valid.data_ptr(),
+                       out.data_ptr(), n, w, lanes, wide], table.device)
     return out
 
 
@@ -135,15 +209,19 @@ def stacked_count_stats(tables: torch.Tensor, inst: torch.Tensor,
             raise ValueError(f"stacked_count_stats: instance id "
                              f"{int(inst.max())} >= K={k}")
         return ref.stacked_count_stats_ref(tables, inst, mask, valid)
-    if tables.device.type != "cuda":
+    if tables.device.type not in ("cuda", "meta"):
         raise ValueError(f"stacked_count_stats has no kernel for "
                          f"{tables.device}")
     wide = _route("stacked_count_stats", route, n, w, lanes, k)
     out = torch.empty((lanes, 4), dtype=torch.int32, device=tables.device)
-    _build.launch("stacked_count_stats", [_PTR] * 5 + [_INT] * 5,
-                  [tables.data_ptr(), inst.data_ptr(), mask.data_ptr(),
-                   valid.data_ptr(), out.data_ptr(), k, n, w, lanes, wide],
-                  tables.device)
+    if tables.device.type == "meta":
+        _build.abstract("stacked_count_stats", stacked_count_stats_cost(
+            tables, inst, mask, valid))
+    else:
+        _build.launch("stacked_count_stats", [_PTR] * 5 + [_INT] * 5,
+                      [tables.data_ptr(), inst.data_ptr(), mask.data_ptr(),
+                       valid.data_ptr(), out.data_ptr(), k, n, w, lanes,
+                       wide], tables.device)
     return out
 
 
@@ -162,7 +240,7 @@ def _check_words(name: str, **tensors: torch.Tensor) -> torch.device:
         if device is not None and t.device != device:
             raise ValueError(f"{name}: operands on {device} and {t.device}")
         device = t.device
-    if device.type not in ("cpu", "cuda"):
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name} has no kernel for {device}")
     return device
 
@@ -176,8 +254,12 @@ def popcount_reduce(rows: torch.Tensor) -> torch.Tensor:
     lanes, w = rows.shape
     out = torch.empty((lanes,), dtype=torch.int32, device=device)
     if lanes:
-        _build.launch("popcount_reduce", [_PTR] * 2 + [_INT] * 2,
-                      [rows.data_ptr(), out.data_ptr(), lanes, w], device)
+        if device.type == "meta":
+            _build.abstract("popcount_reduce", popcount_reduce_cost(rows))
+        else:
+            _build.launch("popcount_reduce", [_PTR] * 2 + [_INT] * 2,
+                          [rows.data_ptr(), out.data_ptr(), lanes, w],
+                          device)
     return out
 
 
@@ -200,9 +282,14 @@ def masked_row_reduce(table: torch.Tensor, select: torch.Tensor, *,
         return ref.masked_row_reduce_ref(table, select, op=op)
     out = torch.empty((lanes, w), dtype=torch.int32, device=device)
     if lanes:
-        _build.launch("masked_row_reduce", [_PTR] * 3 + [_INT] * 4,
-                      [table.data_ptr(), select.data_ptr(), out.data_ptr(),
-                       n, w, lanes, int(op == "and")], device)
+        if device.type == "meta":
+            _build.abstract("masked_row_reduce",
+                            masked_row_reduce_cost(table, select))
+        else:
+            _build.launch("masked_row_reduce", [_PTR] * 3 + [_INT] * 4,
+                          [table.data_ptr(), select.data_ptr(),
+                           out.data_ptr(), n, w, lanes, int(op == "and")],
+                          device)
     return out
 
 

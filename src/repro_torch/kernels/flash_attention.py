@@ -12,6 +12,11 @@ by zero-padding q, k and v along hd to the next built one (zero columns
 change neither q . k nor the kept columns of p . v) and slicing the
 output back, the scale still 1/sqrt of the true hd.
 
+On ``meta`` tensors (a dry run, ``roofline.analyze``) the wrapper takes
+the card's route with the launch replaced by its abstract form: the
+padded copies and the output are allocated, ``cost`` is recorded, and
+nothing runs.
+
 On the card the kernel's output is made differentiable by
 ``plain_grad.PlainGrad`` when grad mode is on and an input requires grad
 (training): the forward is the kernel, the backward PyTorch's gradient of
@@ -29,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 from repro_torch.kernels.plain_grad import PlainGrad
 
 #: Head dims the CUDA kernel is built for: those of the repo's model
@@ -78,7 +83,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               block_q=block_q, block_k=block_k)
     if q.device.type == "cpu":
         return plain(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention has no kernel for {q.device}")
     kernel = functools.partial(_kernel, window=window, softcap=softcap,
                                query_scale=query_scale)
@@ -88,10 +93,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return kernel(q, k, v)
 
 
+def causal_pairs(s: int, window: Optional[int] = None) -> int:
+    """Visible (query, key) pairs of causal attention over ``s``
+    positions, with an optional sliding ``window``."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         window: Optional[int] = None, softcap: float = 0.0,
+         sms: int = autotune.SMS,
+         clock_hz: float = autotune.SM_CLOCK_HZ) -> autotune.KernelCost:
+    """The work of one launch on (q, k, v): two products of hd per
+    visible pair (q k^T and p v, 4 hd FLOPs) at the tensor cores' rate
+    for q's dtype (the CUDA cores' for float32), an exp per pair on the
+    SFU (and a tanh with a softcap); q, k and v read once and the output
+    written once.  ``sms`` and ``clock_hz`` set the SFU's rate (the
+    data sheet's by default)."""
+    b, s, h, hd = q.shape
+    pairs = b * h * causal_pairs(s, window)
+    flops = 4 * hd * pairs
+    sfu = autotune.issue_s(pairs * (2 if softcap else 1),
+                           autotune.SFU_PER_CLOCK_PER_SM, sms, clock_hz)
+    op_s = max(flops / autotune.PEAK_FLOPS[q.dtype], sfu)
+    return autotune.KernelCost(
+        flops, op_s, q.element_size() * (2 * q.numel() + k.numel()
+                                         + v.numel()))
+
+
 def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             window: Optional[int], softcap: float,
             query_scale: Optional[float]) -> torch.Tensor:
-    """The CUDA kernel's launch on CUDA tensors."""
+    """The CUDA kernel's launch on CUDA tensors (its abstract form on
+    ``meta`` tensors)."""
+    work = cost(q, k, v, window=window, softcap=softcap)
     b, s, h, hd = q.shape
     if hd > HEAD_DIMS[-1]:
         raise ValueError(f"flash_attention kernel takes hd <= "
@@ -106,9 +142,12 @@ def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    for t in (q, k, v))
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
-    _build.launch("flash_attention", _ARGTYPES,
-                  [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   b, s, h, k.shape[2], built, window or 0,
-                   int(q.dtype == torch.bfloat16), float(softcap),
-                   float(scale)], q.device)
+    if q.device.type == "meta":
+        _build.abstract("flash_attention", work)
+    else:
+        _build.launch("flash_attention", _ARGTYPES,
+                      [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), b, s, h, k.shape[2], built,
+                       window or 0, int(q.dtype == torch.bfloat16),
+                       float(softcap), float(scale)], q.device)
     return out if built == hd else out[..., :hd]

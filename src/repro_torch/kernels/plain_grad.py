@@ -18,9 +18,19 @@ inference and prefill run the kernel alone.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, List, Tuple
 
 import torch
+
+#: Depth of ``PlainGrad`` backwards in progress (``recomputing``).
+_RECOMPUTING: List[int] = [0]
+
+
+def recomputing() -> bool:
+    """Is a ``PlainGrad`` backward running (its plain recompute and the
+    gradient of it)?  ``roofline.analyze`` charges what runs there to
+    the score bytes."""
+    return _RECOMPUTING[0] > 0
 
 
 class PlainGrad(torch.autograd.Function):
@@ -41,15 +51,19 @@ class PlainGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads) -> Tuple:
         needs = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
-            inputs = [x.detach().requires_grad_(need)
-                      for x, need in zip(ctx.saved_tensors, needs)]
-            outs = ctx.plain(*inputs)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        used = [(out, g) for out, g in zip(outs, grads) if g is not None]
-        wanted = [x for x, need in zip(inputs, needs) if need]
-        got = iter(torch.autograd.grad([out for out, _ in used], wanted,
-                                       [g for _, g in used],
-                                       allow_unused=True))
-        return (None, None) + tuple(next(got) if need else None
-                                    for need in needs)
+        _RECOMPUTING[0] += 1
+        try:
+            with torch.enable_grad():
+                inputs = [x.detach().requires_grad_(need)
+                          for x, need in zip(ctx.saved_tensors, needs)]
+                outs = ctx.plain(*inputs)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            used = [(out, g) for out, g in zip(outs, grads) if g is not None]
+            wanted = [x for x, need in zip(inputs, needs) if need]
+            got = iter(torch.autograd.grad([out for out, _ in used], wanted,
+                                           [g for _, g in used],
+                                           allow_unused=True))
+            return (None, None) + tuple(next(got) if need else None
+                                        for need in needs)
+        finally:
+            _RECOMPUTING[0] -= 1

@@ -10,6 +10,11 @@ P up to 64.  Its three passes (each chunk's own state, the carry from
 chunk to chunk, the output) go through one C entry point, one launch;
 the wrapper allocates the chunks' states between the passes.
 
+On ``meta`` tensors (a dry run, ``roofline.analyze``) the wrapper takes
+the card's route with the launch replaced by its abstract form: y, the
+state and the chunks' f32 states are allocated, ``cost`` is recorded,
+and nothing runs.
+
 On the card the kernel's outputs are made differentiable by
 ``plain_grad.PlainGrad`` when grad mode is on and an input requires grad
 (training): the forward is the kernel, the backward PyTorch's gradient of
@@ -27,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 from repro_torch.kernels.plain_grad import PlainGrad
 
 #: Largest chunk and head width (P) the CUDA kernel takes.
@@ -75,7 +80,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     plain = functools.partial(ref.ssd_scan_ref, chunk=chunk)
     if x.device.type == "cpu":
         return plain(x, dt, a, b, c, d)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan has no kernel for {x.device}")
     kernel = functools.partial(_kernel, chunk=chunk)
     if torch.is_grad_enabled() and any(
@@ -84,10 +89,29 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return kernel(x, dt, a, b, c, d)
 
 
+def cost(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+         b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+         chunk: int = 64) -> autotune.KernelCost:
+    """The work of one launch: per chunk and head, the lower triangle of
+    C B^T and of its product with x, C S and the state update, at the
+    tensor cores' rate for x's dtype (the CUDA cores' for float32); each
+    input read once, y and the final state written once."""
+    bsz, s, h, p = x.shape
+    n = b.shape[3]
+    tri = chunk * (chunk + 1) // 2
+    chunks = -(-s // chunk)
+    flops = bsz * h * chunks * (2 * tri * n + 2 * tri * p + 4 * chunk * n * p)
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a, b, c, d))
+    nbytes += x.numel() * x.element_size() + 4 * bsz * h * n * p
+    return autotune.KernelCost(flops, flops / autotune.PEAK_FLOPS[x.dtype],
+                               nbytes)
+
+
 def _kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
             chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA kernel's launch on CUDA tensors."""
+    """The CUDA kernel's launch on CUDA tensors (its abstract form on
+    ``meta`` tensors)."""
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if not 1 <= chunk <= MAX_CHUNK or p > MAX_P:
@@ -101,6 +125,9 @@ def _kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     chunks = -(-s // chunk)
     scratch = torch.empty((bsz * h * chunks * (n * p + 1),),
                           dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        _build.abstract("ssd_scan", cost(x, dt, a, b, c, d, chunk))
+        return y, state
     try:
         _build.launch("ssd_scan", _ARGTYPES,
                       [x.data_ptr(), dt.data_ptr(), a.data_ptr(),

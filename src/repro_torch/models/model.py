@@ -53,7 +53,7 @@ from repro_torch.models import blocks
 from repro_torch.models.blocks import Ctx
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import norm_decl, rmsnorm
-from repro_torch.models.params import ParamDecl, init_params
+from repro_torch.models.params import ParamDecl, abstract_params, init_params
 
 PyTree = Any
 
@@ -119,6 +119,11 @@ def init(cfg: ArchConfig, gen: torch.Generator, device) -> PyTree:
     """Random parameters on ``device`` from ``gen`` (the reference's init
     laws, PyTorch's random streams)."""
     return init_params(param_decls(cfg), gen, device)
+
+
+def abstract(cfg: ArchConfig) -> PyTree:
+    """The parameters' stand-ins on ``meta`` (the dry run's)."""
+    return abstract_params(param_decls(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +355,12 @@ def cache_init(cfg: ArchConfig, batch: int, seq: int,
     return {site: {name: torch.zeros(shape, dtype=dt, device=device)
                    for name, (shape, dt) in leaves.items()}
             for site, leaves in struct.items()}
+
+
+def cache_abstract(cfg: ArchConfig, batch: int, seq: int,
+                   dtype=torch.bfloat16, quant: bool = False) -> PyTree:
+    """``cache_init``'s stand-ins on ``meta`` (the dry run's cache)."""
+    return cache_init(cfg, batch, seq, dtype, "meta", quant)
 
 
 def batch_axis(cfg: ArchConfig, site: str) -> int:

@@ -60,3 +60,10 @@ def init_params(decls: PyTree, gen: torch.Generator, device) -> PyTree:
     (a generator of that device) leaf after leaf in the tree's order."""
     device = torch.device(device)
     return tree_map(lambda d: _init_leaf(d, gen, device), decls)
+
+
+def abstract_params(decls: PyTree) -> PyTree:
+    """Stand-ins for a declaration tree on the ``meta`` device: each
+    leaf's shape and dtype, no storage (the dry run's parameters)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), decls)

@@ -78,3 +78,9 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     """The first index of the largest logit along the last axis, as int32
     (``jnp.argmax``'s tie-break); audio's [B, CB, V] gives [B, CB]."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def decode_tokens_abstract(cfg: ArchConfig, batch: int) -> torch.Tensor:
+    """A decode step's tokens' stand-in on ``meta`` (the dry run's)."""
+    shape = (batch, 1, cfg.n_codebooks) if cfg.n_codebooks else (batch, 1)
+    return torch.empty(shape, dtype=torch.int32, device="meta")

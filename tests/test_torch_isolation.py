@@ -50,7 +50,9 @@ def test_port_sources_import_no_jax_or_reference():
                 "train/optim.py", "train/step.py", "train/checkpoint.py",
                 "train/compression.py", "data/__init__.py",
                 "data/pipeline.py", "distributed/__init__.py",
-                "distributed/pipeline_parallel.py", "launch/train.py"):
+                "distributed/pipeline_parallel.py", "launch/train.py",
+                "roofline.py", "launch/mesh.py", "launch/dryrun.py",
+                "launch/solver_dryrun.py", "analysis/docs_smoke.py"):
         assert PORT / new in files, new
     bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
            for p in files for line, root in _imported_roots(p)
@@ -81,6 +83,10 @@ def test_port_sources_import_no_jax_or_reference():
     "repro_torch.data.pipeline",
     "repro_torch.distributed.pipeline_parallel",
     "repro_torch.launch.train",
+    "repro_torch.roofline",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.solver_dryrun",
+    "repro_torch.analysis.docs_smoke",
 ])
 def test_port_imports_with_jax_blocked(module):
     """A fresh interpreter with ``jax`` and ``repro`` made unimportable

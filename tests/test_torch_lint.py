@@ -768,6 +768,9 @@ PORT_ONLY_MODULES = {
              "only",
     "train": "the LM training entry points (AdamW, the step factory); the "
              "reference snapshots its solver front door only",
+    "roofline": "the dry run's counter (analyze, the roofline and memory "
+                "counts); the reference snapshots its solver front door "
+                "only",
 }
 
 
