@@ -1,0 +1,3 @@
+"""`instances_per_s`: see `portbench/readers.py`."""
+
+from portbench.readers import instances_per_s as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""`round_ms.solve`: see `portbench/readers.py`, `round_ms`."""
+
+from portbench.readers import round_ms as read  # noqa: F401
