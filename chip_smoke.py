@@ -523,6 +523,27 @@ def sync_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def span_ms(run, round_no):
+    """The program's own spans of round ``round_no`` of span run ``run``:
+    host milliseconds of each phase by name (self times, so ``admit``
+    leaves out its ``rebuild``) and ``round``, the whole round."""
+    from repro_torch.obs import spans
+    mine = [s for s in spans.RECORDER.spans(run)
+            if s.round == round_no and s.rid is None]
+    own = spans.self_ns(mine)
+    out = {}
+    for s in mine:
+        key = "round" if s.name == "round" else s.name
+        add = s.duration_ns if s.name == "round" else own[s.id]
+        out[key] = out.get(key, 0.0) + add / 1e6
+    return out
+
+
+def span_line(split):
+    return ", ".join(f"{k} {v:.1f} ms" for k, v in split.items()
+                     if isinstance(v, float))
+
+
 # -- phase 2 ----------------------------------------------------------------
 
 def rand_words(rng, shape):
@@ -661,8 +682,10 @@ def phase_drain(report):
 def phase_cell60(report, rounds_after_boot=2):
     from repro_torch.convert import words
     from repro_torch.core import steal
+    from repro_torch.core.distributed import make_round
     from repro_torch.core.engine import init_lanes, make_expand, make_step
     from repro_torch.kernels import bitset_ops, ref
+    from repro_torch.obs import spans
     from repro_torch.problems.graphs import cell60_graph
     from repro_torch.problems.vertex_cover import make_vertex_cover
 
@@ -713,33 +736,35 @@ def phase_cell60(report, rounds_after_boot=2):
           f"masks of all {checked} steps of the first 5 rounds "
           f"({active} lanes active after them)", flush=True)
 
-    # (c) Round time split from there: expand (64 steps) vs balance (steal
-    # + CONVERTINDEX replay), each between two synchronizes.
-    expand = make_expand(problem, 64)
+    # (c) Two more rounds through the round function, as Solver.solve
+    # runs them (expand, the steal and its replay, the open-work
+    # readback), timed by the program's own spans.
+    round_fn = make_round(problem, 64)
+    run = spans.begin_run("solve")
     split = []
-    for _ in range(2):
+    for r in (1, 2):
         before = bitset_ops.LAUNCHES["count_stats"]
         nodes0 = int(lanes.nodes.sum())
-        t_exp, lanes = sync_ms(lambda: expand(lanes))
-        mid = bitset_ops.LAUNCHES["count_stats"]
-        t_bal, lanes = sync_ms(lambda: steal.balance_device(problem, lanes))
-        after = bitset_ops.LAUNCHES["count_stats"]
-        split.append(dict(expand_ms=t_exp, balance_ms=t_bal,
-                          expand_launches=mid - before,
-                          balance_launches=after - mid,
+        with spans.span("round", run=run, round=r):
+            lanes, open_work = round_fn(lanes)
+            with spans.span("readback"):
+                open_now = int(open_work.sum())
+        launches = bitset_ops.LAUNCHES["count_stats"] - before
+        split.append(dict(span_ms(run, r), launches=launches,
                           nodes=int(lanes.nodes.sum()) - nodes0,
+                          open_work=open_now,
                           active_after=int(lanes.active.sum())))
-        check(mid - before == 64 and after - mid == il,
-              f"launches per round: expand {mid - before} (want 64), "
-              f"balance {after - mid} (want {il})")
+        check(launches == 64 + il,
+              f"launches per round: {launches} (want 64 expand steps + "
+              f"{il} replay passes)")
+        check({"expand", "balance", "replay", "readback"} <= set(split[-1]),
+              f"round {r}: spans {sorted(split[-1])}")
     for r in split:
-        share = r["expand_ms"] / (r["expand_ms"] + r["balance_ms"])
-        print(f"phase 4: round split: expand {r['expand_ms']:.1f} ms "
-              f"({r['expand_launches']} launches), balance "
-              f"{r['balance_ms']:.1f} ms ({r['balance_launches']} launches), "
-              f"expand share {share:.3f}, nodes {r['nodes']}, "
-              f"active lanes after {r['active_after']}", flush=True)
+        print(f"phase 4: round spans: {span_line(r)}; {r['launches']} "
+              f"launches, nodes {r['nodes']}, active lanes after "
+              f"{r['active_after']}", flush=True)
     report["cell60_split"] = split
+    expand = make_expand(problem, 64)
 
     # (d) One more round under the profiler: how busy the card is.
     busy = {}
@@ -1100,15 +1125,12 @@ def phase_service(report):
 
 def phase_service_steps(report, check_rounds=3):
     """The same service again: its first rounds with every kernel launch
-    held against the plain version on the live inputs, then one round
-    split into expand, balance and an admission's rebuild, and one round
-    under the profiler.  Returns the service (mid-run) and its live
+    held against the plain version on the live inputs, then two rounds
+    timed by the service's own spans, and one round under the profiler.  Returns the service (mid-run) and its live
     kernel inputs."""
-    from repro_torch.core import checkpoint as ckpt
-    from repro_torch.core import steal
     from repro_torch.core.api import tree_map
-    from repro_torch.core.engine import make_expand
     from repro_torch.kernels import bitset_ops, ref
+    from repro_torch.obs import spans
     from repro_torch.service import batch_problem
     cfg = SERVICE
     parity = report["parity"]["stacked_count_stats"]
@@ -1139,31 +1161,24 @@ def phase_service_steps(report, check_rounds=3):
           f"first {check_rounds} service rounds (slots {svc.slot_rid})",
           flush=True)
 
-    # (b) Round split from there, on copies (the service's lanes stay).
-    problem = svc.problem
-    expand = make_expand(problem, cfg["steps"])
-    lanes = svc.lanes
+    # (b) Two more rounds of the service, timed by its own spans: the
+    # admission and its rebuild, expand, balance, replay, the readback,
+    # retirement.
+    run = spans.newest_run("service")
     split = []
     for _ in range(2):
-        c0 = bitset_ops.LAUNCHES["stacked_count_stats"]
-        t_exp, after_exp = sync_ms(lambda: expand(lanes))
-        c1 = bitset_ops.LAUNCHES["stacked_count_stats"]
-        t_bal, after_bal = sync_ms(
-            lambda: steal.balance_device(problem, after_exp))
-        c2 = bitset_ops.LAUNCHES["stacked_count_stats"]
-        t_reb, _ = sync_ms(lambda: ckpt.rebuild_stacks(problem, after_bal))
-        c3 = bitset_ops.LAUNCHES["stacked_count_stats"]
-        split.append(dict(expand_ms=t_exp, balance_ms=t_bal, rebuild_ms=t_reb,
-                          expand_launches=c1 - c0, balance_launches=c2 - c1,
-                          rebuild_launches=c3 - c2,
-                          active_after=int(after_bal.active.sum())))
-        lanes = after_bal
+        before = bitset_ops.LAUNCHES["stacked_count_stats"]
+        svc.step_round()
+        split.append(dict(
+            span_ms(run, svc.rounds),
+            launches=bitset_ops.LAUNCHES["stacked_count_stats"] - before,
+            active_after=int(svc.lanes.active.sum())))
+        check({"admit", "expand", "balance", "replay", "readback",
+               "retire"} <= set(split[-1]),
+              f"service round {svc.rounds}: spans {sorted(split[-1])}")
     for r in split:
-        print(f"phase 7: service round split: expand {r['expand_ms']:.1f} ms "
-              f"({r['expand_launches']} launches), balance "
-              f"{r['balance_ms']:.1f} ms ({r['balance_launches']} launches), "
-              f"admission rebuild {r['rebuild_ms']:.1f} ms "
-              f"({r['rebuild_launches']} launches), active lanes after "
+        print(f"phase 7: service round spans: {span_line(r)}; "
+              f"{r['launches']} launches, active lanes after "
               f"{r['active_after']}", flush=True)
     report["service_split"] = split
 

@@ -1,0 +1,6 @@
+"""`event_ms.solve`: host milliseconds a window round in the program's
+``event`` spans, self time (``portbench/spans.py``)."""
+
+from portbench.spans import self_ms
+
+read = self_ms("event")

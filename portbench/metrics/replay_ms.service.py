@@ -1,0 +1,6 @@
+"""`replay_ms.service`: host milliseconds a window round in the program's
+``replay`` spans, self time (``portbench/spans.py``)."""
+
+from portbench.spans import self_ms
+
+read = self_ms("replay")

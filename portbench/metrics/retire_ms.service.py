@@ -1,0 +1,6 @@
+"""`retire_ms.service`: host milliseconds a window round in the program's
+``retire`` spans, self time (``portbench/spans.py``)."""
+
+from portbench.spans import self_ms
+
+read = self_ms("retire")

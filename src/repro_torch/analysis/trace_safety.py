@@ -78,6 +78,9 @@ ROUND_LOOP_ROOTS: Tuple[str, ...] = (
     "repro_torch.core.distributed:make_distributed_round.round_fn",
     "repro_torch.core.distributed:cross_device_assign",
     "repro_torch.core.distributed:replay_per_device",
+    # The round's spans: ``with spans.span(...)`` reaches these implicitly.
+    "repro_torch.obs.spans:_Opened.__enter__",
+    "repro_torch.obs.spans:_Opened.__exit__",
     "repro_torch.problems.vertex_cover:make_vertex_cover.evaluate_batch",
     "repro_torch.problems.dominating_set:make_dominating_set.evaluate_batch",
     "repro_torch.problems.subset_sum:make_subset_sum.evaluate_batch",
@@ -203,9 +206,12 @@ def own_statements(func_node) -> Iterator[ast.stmt]:
 
 
 def own_expressions(stmt: ast.stmt) -> Iterator[ast.AST]:
-    """Every node of a statement's own expressions: not those of the
-    statements nested in it, nor the bodies of its lambdas."""
+    """Every node of a statement's own expressions (a ``with``'s context
+    expressions among them): not those of the statements nested in it,
+    nor the bodies of its lambdas."""
     todo = [c for c in ast.iter_child_nodes(stmt) if isinstance(c, ast.expr)]
+    if isinstance(stmt, (ast.With, ast.AsyncWith)):
+        todo.extend(item.context_expr for item in stmt.items)
     while todo:
         node = todo.pop()
         yield node

@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.api import (INF_VALUE, LEFT, RIGHT, UNVISITED,
                                   BinaryProblem, bcast, root_of, tree_leaves,
                                   tree_map, tree_select)
+from repro_torch.obs import spans
 
 PyTree = Any
 
@@ -218,9 +219,10 @@ def make_expand(problem: BinaryProblem, num_steps: int,
     step = make_step(problem)
 
     def expand(lanes: Lanes) -> Lanes:
-        for _ in range(num_steps):
-            ran = lanes.active.any().to(torch.int32)
-            lanes = step(lanes)._replace(steps=lanes.steps + ran)
+        with spans.span("expand"):
+            for _ in range(num_steps):
+                ran = lanes.active.any().to(torch.int32)
+                lanes = step(lanes)._replace(steps=lanes.steps + ran)
         return lanes
 
     return expand

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core.api import UNVISITED, BinaryProblem, bcast, tree_map
 from repro_torch.core.engine import Lanes, replay_path
 from repro_torch.core.indexing import extract_task, heaviest_open_slot
+from repro_torch.obs import spans
 
 
 def donor_slots(lanes: Lanes) -> torch.Tensor:
@@ -152,17 +153,18 @@ def assign_tasks(lanes: Lanes, bits: torch.Tensor, tdepth: torch.Tensor,
     the state stack.  Returns the lanes and the mask of those that took a
     row, which :func:`replay_received` then rebuilds.  ``cross`` (set by
     the cross-device steal) also counts each receipt in ``t_c``."""
-    my_valid = valid & ~lanes.active
-    recv = my_valid.to(torch.int32)
-    return lanes._replace(
-        idx=torch.where(my_valid[:, None], bits, lanes.idx),
-        depth=torch.where(my_valid, tdepth, lanes.depth),
-        base=torch.where(my_valid, tdepth, lanes.base),
-        inst=torch.where(my_valid, tinst, lanes.inst),
-        active=lanes.active | my_valid,
-        t_s=lanes.t_s + recv,
-        t_c=lanes.t_c + recv if cross else lanes.t_c,
-    ), my_valid
+    with spans.span("balance"):
+        my_valid = valid & ~lanes.active
+        recv = my_valid.to(torch.int32)
+        return lanes._replace(
+            idx=torch.where(my_valid[:, None], bits, lanes.idx),
+            depth=torch.where(my_valid, tdepth, lanes.depth),
+            base=torch.where(my_valid, tdepth, lanes.base),
+            inst=torch.where(my_valid, tinst, lanes.inst),
+            active=lanes.active | my_valid,
+            t_s=lanes.t_s + recv,
+            t_c=lanes.t_c + recv if cross else lanes.t_c,
+        ), my_valid
 
 
 def replay_received(problem: BinaryProblem, lanes: Lanes,
@@ -171,14 +173,15 @@ def replay_received(problem: BinaryProblem, lanes: Lanes,
     index from its instance's root and owns the stolen subtree from
     ``base`` = its depth; the other lanes keep their stacks.  Lane-local,
     so lanes of several shards on one device replay in one batch."""
-    bits = torch.where(received[:, None], lanes.idx, UNVISITED).to(
-        torch.int8)
-    depth = torch.where(received, lanes.depth, 0).to(torch.int32)
-    inst = torch.where(received, lanes.inst, 0).to(torch.int32)
-    new_stack = replay_path(problem, bits, depth, lanes.stack, inst)
-    return lanes._replace(stack=tree_map(
-        lambda new, old: torch.where(bcast(received, old), new, old),
-        new_stack, lanes.stack))
+    with spans.span("replay"):
+        bits = torch.where(received[:, None], lanes.idx, UNVISITED).to(
+            torch.int8)
+        depth = torch.where(received, lanes.depth, 0).to(torch.int32)
+        inst = torch.where(received, lanes.inst, 0).to(torch.int32)
+        new_stack = replay_path(problem, bits, depth, lanes.stack, inst)
+        return lanes._replace(stack=tree_map(
+            lambda new, old: torch.where(bcast(received, old), new, old),
+            new_stack, lanes.stack))
 
 
 def install_tasks(problem: BinaryProblem, lanes: Lanes, bits: torch.Tensor,
@@ -196,22 +199,24 @@ def balance_plan(lanes: Lanes) -> Tuple[Lanes, torch.Tensor, torch.Tensor,
     """The matching and extraction of one intra-device steal round:
     ``(lanes', bits, task_depth, task_inst, matched)``, thief i's row in
     row i, for :func:`install_tasks` (or :func:`assign_tasks`)."""
-    slots = donor_slots(lanes)
-    thieves = thief_mask(lanes)
-    # Every bound idle lane "requests" this round (paper's T_R accounting).
-    lanes = lanes._replace(t_r=lanes.t_r + thieves.to(torch.int32))
-    src, matched, is_donor = match_thieves_to_donors(lanes, slots)
+    with spans.span("balance"):
+        slots = donor_slots(lanes)
+        thieves = thief_mask(lanes)
+        # Every bound idle lane "requests" this round (paper's T_R
+        # accounting).
+        lanes = lanes._replace(t_r=lanes.t_r + thieves.to(torch.int32))
+        src, matched, is_donor = match_thieves_to_donors(lanes, slots)
 
-    new_idx_all, bits_all = extract_task(lanes.idx, slots)
-    lanes = lanes._replace(
-        idx=torch.where(is_donor[:, None], new_idx_all, lanes.idx),
-        donated=lanes.donated + is_donor.to(torch.int32))
+        new_idx_all, bits_all = extract_task(lanes.idx, slots)
+        lanes = lanes._replace(
+            idx=torch.where(is_donor[:, None], new_idx_all, lanes.idx),
+            donated=lanes.donated + is_donor.to(torch.int32))
 
-    bits = torch.where(matched[:, None], bits_all[src], UNVISITED).to(
-        torch.int8)
-    tdepth = torch.where(matched, slots[src] + 1, 0).to(torch.int32)
-    tinst = torch.where(matched, lanes.inst[src], 0).to(torch.int32)
-    return lanes, bits, tdepth, tinst, matched
+        bits = torch.where(matched[:, None], bits_all[src], UNVISITED).to(
+            torch.int8)
+        tdepth = torch.where(matched, slots[src] + 1, 0).to(torch.int32)
+        tinst = torch.where(matched, lanes.inst[src], 0).to(torch.int32)
+        return lanes, bits, tdepth, tinst, matched
 
 
 def balance_device(problem: BinaryProblem, lanes: Lanes) -> Lanes:

@@ -11,12 +11,17 @@
 * :mod:`repro_torch.obs.collect` — the per-round collector both drivers
   call at round boundaries.  It copies the lane counters to the host once
   per round, after the round's own open-work readback, and feeds nothing
-  back, so the search tree is bit-identical with telemetry on or off.
+  back, so the search tree is bit-identical with telemetry on or off;
+* :mod:`repro_torch.obs.spans` — host-time spans of each phase of a round
+  and of each request, on by default and held in a bounded ring beside
+  (not inside) the reference's trace schema; exported as a Chrome trace
+  that loads beside ``torch.profiler``'s.
 """
 
 from repro_torch.obs.collect import RoundCollector
 from repro_torch.obs.registry import (Counter, Gauge, Histogram,
                                       MetricsRegistry, MetricsSnapshot)
+from repro_torch.obs.spans import Span, SpanRecorder
 from repro_torch.obs.trace import (TRACE_KINDS, TRACE_SCHEMA_VERSION,
                                    TraceError, TraceWriter, read_trace,
                                    validate_record)
@@ -28,6 +33,8 @@ __all__ = [
     "MetricsRegistry",
     "MetricsSnapshot",
     "RoundCollector",
+    "Span",
+    "SpanRecorder",
     "TRACE_KINDS",
     "TRACE_SCHEMA_VERSION",
     "TraceError",

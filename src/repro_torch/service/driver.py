@@ -61,6 +61,7 @@ from repro_torch.core.distributed import (Mesh, ShardedLanes, _gather_lanes,
                                          _shard_lanes, available_devices,
                                          make_round, replace_sharded)
 from repro_torch.core.engine import NO_INSTANCE, Lanes, init_lanes
+from repro_torch.obs import spans
 from repro_torch.problems.graphs import Graph, num_words
 from repro_torch.service.batch_problem import StackedSpec, StackedTables
 from repro_torch.service.scheduler import (AutoscalePolicy, QueueItem,
@@ -181,6 +182,11 @@ class SolverService:
         # install) clears it.
         self._placement_clean = False
 
+        # Host-time spans (obs/spans.py): this service's run, and each
+        # live request's (request, queued) span ids.
+        self._span_run = spans.begin_run("service")
+        self._request_spans: Dict[int, Tuple[int, int]] = {}
+
         # Telemetry (DESIGN.md §8): one RoundCollector fed at round
         # boundaries.
         self.metrics_enabled = bool(metrics)
@@ -232,13 +238,14 @@ class SolverService:
 
     def _rebuild_stacks(self) -> None:
         """CONVERTINDEX replay of every active lane's stack, per shard."""
-        if self.mesh is None:
-            self.lanes = ckpt.rebuild_stacks(self.problem, self.lanes)
-        else:
-            self.lanes = ShardedLanes([
-                ckpt.rebuild_stacks(self._problems[dev], shard)
-                for dev, shard in zip(self.mesh.devices,
-                                      self.lanes.shards)])
+        with spans.span("rebuild"):
+            if self.mesh is None:
+                self.lanes = ckpt.rebuild_stacks(self.problem, self.lanes)
+            else:
+                self.lanes = ShardedLanes([
+                    ckpt.rebuild_stacks(self._problems[dev], shard)
+                    for dev, shard in zip(self.mesh.devices,
+                                          self.lanes.shards)])
 
     def metrics(self):
         """``repro_torch.obs.MetricsSnapshot`` of this service's registry,
@@ -321,8 +328,19 @@ class SolverService:
                 self._collector.lifecycle("reject", round_no=self.rounds,
                                           rid=request.rid, reason=reason)
             raise AdmissionError(reason)
-        return self.sched.enqueue(request, now_round=self.rounds,
-                                  service=self)
+        ticket = self.sched.enqueue(request, now_round=self.rounds,
+                                    service=self)
+        whole = spans.open_span("request", run=self._span_run,
+                                rid=request.rid)
+        self._request_spans[request.rid] = (whole, spans.open_span(
+            "queued", run=self._span_run, rid=request.rid, parent=whole))
+        return ticket
+
+    def _end_request(self, rid: int) -> None:
+        """Close request ``rid``'s spans: it reached a terminal state."""
+        whole, queued = self._request_spans.pop(rid, (0, 0))
+        spans.close_span(queued)
+        spans.close_span(whole)
 
     def cancel(self, rid: int) -> bool:
         """Cancel request ``rid`` (the ``Ticket.cancel`` implementation).
@@ -339,6 +357,7 @@ class SolverService:
             result = self._evict_slot(self.slot_rid.index(rid), "cancelled")
             best = result.optimum
         self.sched.resolve(rid, TicketStatus.CANCELLED, self.rounds)
+        self._end_request(rid)
         self._emit("cancel", rid=rid, best=best)
         self._note_lifecycle("cancel", rid, best=best)
         return True
@@ -424,6 +443,7 @@ class SolverService:
             if ticket is not None:
                 ticket.status = TicketStatus.RUNNING
                 ticket.admitted_round = self.rounds
+            spans.close_span(self._request_spans.get(req.rid, (0, 0))[1])
             # Reset the slot incumbent, seed the root on the chosen lane.
             h["best"][slot] = int(INF_VALUE)
             if payload_host is None:
@@ -489,6 +509,7 @@ class SolverService:
                 admitted_round=self.slot_admitted[slot],
                 retired_round=self.rounds)
             self.sched.resolve(rid, TicketStatus.DONE, self.rounds)
+            self._end_request(rid)
             self._emit("retire", rid=rid, best=self.results[rid].optimum)
             self._note_lifecycle("retire", rid,
                                  best=self.results[rid].optimum)
@@ -534,6 +555,7 @@ class SolverService:
         for rid in queued:
             self.sched.remove_queued(rid)
             self.sched.resolve(rid, TicketStatus.EXPIRED, self.rounds)
+            self._end_request(rid)
             # Never admitted: the anytime result is the empty incumbent.
             self.results[rid] = RequestResult(
                 rid=rid, optimum=int(INF_VALUE),
@@ -545,6 +567,7 @@ class SolverService:
         for rid in running:
             result = self._evict_slot(self.slot_rid.index(rid), "expired")
             self.sched.resolve(rid, TicketStatus.EXPIRED, self.rounds)
+            self._end_request(rid)
             self._emit("expire", rid=rid, best=result.optimum)
             self._note_lifecycle("expire", rid, best=result.optimum)
 
@@ -569,47 +592,53 @@ class SolverService:
     def step_round(self) -> np.ndarray:
         """One service cycle: admit -> round -> retire -> evict.  Returns
         the per-slot open-work vector."""
-        track = self.sched.track_nodes()
-        col = self._collector
-        changed = self._admit_and_place()
-        nodes_before = None
-        if col is not None:
-            # Host-side surgery (admission seeds, pool installs) bumps t_s:
-            # refresh the baseline so steal deltas cover the round only.
-            col.before_round(self.lanes, dirty=changed)
-        elif track:
-            nodes_before = _host(self.lanes.nodes).copy()
-        self.lanes, open_vec = self._round(self.lanes)
-        self.rounds += 1
-        open_np = _host(open_vec)        # the one per-round readback
-        inst_delta = None
-        if col is not None:
-            inst_delta = col.after_round(
-                self.rounds, self.lanes, int(open_np.sum()),
-                queue_depth=self.sched.queue_depth(),
-                slot_rids=self.slot_rid)
-        if track:
-            # Round-granular attribution: a lane's node delta this round is
-            # charged to the instance it serves at the round boundary.  The
-            # collector computes exactly this delta; without one, read back.
-            if inst_delta is None:
-                delta = _host(self.lanes.nodes) - nodes_before
-                inst = _host(self.lanes.inst)
-                inst_delta = [int(delta[inst == slot].sum())
-                              for slot in range(self.spec.k)]
-            for slot in range(self.spec.k):
-                rid = self.slot_rid[slot]
-                if rid >= 0 and inst_delta[slot]:
-                    self.sched.note_nodes(rid, int(inst_delta[slot]))
-        self._emit("round", open_work=int(open_np.sum()),
-                   metrics=(col.snapshot()
-                            if col is not None and self.metrics_enabled
-                            and self.on_event is not None else None))
-        self._emit_incumbents()
-        self._retire(open_np)
-        self._expire()
-        self.maybe_autoscale()
-        return open_np
+        with spans.span("round", run=self._span_run, round=self.rounds + 1):
+            track = self.sched.track_nodes()
+            col = self._collector
+            with spans.span("admit"):
+                changed = self._admit_and_place()
+            nodes_before = None
+            if col is not None:
+                # Host-side surgery (admission seeds, pool installs) bumps
+                # t_s: refresh the baseline so steal deltas cover the round
+                # only.
+                col.before_round(self.lanes, dirty=changed)
+            elif track:
+                nodes_before = _host(self.lanes.nodes).copy()
+            self.lanes, open_vec = self._round(self.lanes)
+            self.rounds += 1
+            with spans.span("readback"):
+                open_np = _host(open_vec)    # the one per-round readback
+            with spans.span("retire"):
+                inst_delta = None
+                if col is not None:
+                    inst_delta = col.after_round(
+                        self.rounds, self.lanes, int(open_np.sum()),
+                        queue_depth=self.sched.queue_depth(),
+                        slot_rids=self.slot_rid)
+                if track:
+                    # Round-granular attribution: a lane's node delta this
+                    # round is charged to the instance it serves at the
+                    # round boundary.  The collector computes exactly this
+                    # delta; without one, read back.
+                    if inst_delta is None:
+                        delta = _host(self.lanes.nodes) - nodes_before
+                        inst = _host(self.lanes.inst)
+                        inst_delta = [int(delta[inst == slot].sum())
+                                      for slot in range(self.spec.k)]
+                    for slot in range(self.spec.k):
+                        rid = self.slot_rid[slot]
+                        if rid >= 0 and inst_delta[slot]:
+                            self.sched.note_nodes(rid, int(inst_delta[slot]))
+                self._emit("round", open_work=int(open_np.sum()),
+                           metrics=(col.snapshot()
+                                    if col is not None and self.metrics_enabled
+                                    and self.on_event is not None else None))
+                self._emit_incumbents()
+                self._retire(open_np)
+                self._expire()
+                self.maybe_autoscale()
+            return open_np
 
     def drain(self, max_rounds: int = 100000) -> Dict[int, RequestResult]:
         """Step rounds until every submitted request is terminal."""

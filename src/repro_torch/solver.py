@@ -33,6 +33,7 @@ from repro_torch.core.distributed import (Mesh, SolveStats, _gather_lanes,
                                          problems_per_shard)
 from repro_torch.core.engine import Lanes, init_lanes
 from repro_torch.core.serial import serial_rb
+from repro_torch.obs import spans
 
 __all__ = [
     "ConfigError",
@@ -342,7 +343,8 @@ class Solver:
             if collector is not None:
                 collector.before_round(lanes, dirty=fed)
             lanes, open_work = fn(lanes)
-            open_now = int(open_work.sum())
+            with spans.span("readback"):
+                open_now = int(open_work.sum())
             if collector is not None:
                 collector.after_round(rounds + 1, lanes, open_now)
             return lanes, open_now
@@ -351,28 +353,32 @@ class Solver:
             return (collector.snapshot()
                     if collector is not None and cfg.metrics else None)
 
+        run = spans.begin_run("solve")
         rounds, done = 0, False
         for _ in range(bootstrap_rounds):
-            lanes, open_now = run_round(boot_fn, lanes)
+            with spans.span("round", run=run, round=rounds + 1):
+                lanes, open_now = run_round(boot_fn, lanes)
             rounds += 1
             if open_now == 0 and not pool:
                 done = True
                 break
         while not done and rounds < cfg.max_rounds:
-            lanes, open_now = run_round(round_fn, lanes)
-            rounds += 1
-            if self.on_event is not None:
-                # The incumbent readback costs a sync: only pay it when
-                # someone is listening.
-                emit(self.on_event, "round", round=rounds,
-                     open_work=open_now, best=int(lanes.best.min()),
-                     lanes=lanes, metrics=snap())
-            if (cfg.checkpoint_every and cfg.checkpoint_path
-                    and rounds % cfg.checkpoint_every == 0):
-                ckpt.save(cfg.checkpoint_path, _gather_lanes(lanes),
-                          payload_dtype=problem.payload_dtype)
-                emit(self.on_event, "checkpoint", round=rounds,
-                     path=cfg.checkpoint_path)
+            with spans.span("round", run=run, round=rounds + 1):
+                lanes, open_now = run_round(round_fn, lanes)
+                rounds += 1
+                if self.on_event is not None:
+                    # The incumbent readback costs a sync: only pay it when
+                    # someone is listening.
+                    with spans.span("event"):
+                        emit(self.on_event, "round", round=rounds,
+                             open_work=open_now, best=int(lanes.best.min()),
+                             lanes=lanes, metrics=snap())
+                if (cfg.checkpoint_every and cfg.checkpoint_path
+                        and rounds % cfg.checkpoint_every == 0):
+                    ckpt.save(cfg.checkpoint_path, _gather_lanes(lanes),
+                              payload_dtype=problem.payload_dtype)
+                    emit(self.on_event, "checkpoint", round=rounds,
+                         path=cfg.checkpoint_path)
             done = open_now == 0 and not pool
 
         stats = SolveStats(

@@ -52,7 +52,8 @@ def test_port_sources_import_no_jax_or_reference():
                 "data/pipeline.py", "distributed/__init__.py",
                 "distributed/pipeline_parallel.py", "launch/train.py",
                 "roofline.py", "launch/mesh.py", "launch/dryrun.py",
-                "launch/solver_dryrun.py", "analysis/docs_smoke.py"):
+                "launch/solver_dryrun.py", "analysis/docs_smoke.py",
+                "obs/spans.py"):
         assert PORT / new in files, new
     bad = [f"{p.relative_to(ROOT)}:{line} imports {root}"
            for p in files for line, root in _imported_roots(p)
@@ -87,6 +88,7 @@ def test_port_sources_import_no_jax_or_reference():
     "repro_torch.launch.dryrun",
     "repro_torch.launch.solver_dryrun",
     "repro_torch.analysis.docs_smoke",
+    "repro_torch.obs.spans",
 ])
 def test_port_imports_with_jax_blocked(module):
     """A fresh interpreter with ``jax`` and ``repro`` made unimportable

@@ -139,6 +139,7 @@ HAZARDS = {
     "synchronize": "torch.cuda.synchronize()",
     "print": "print(lanes.best)",
     "host-copy": "n = torch.tensor(0, device=lanes.idx.device)",
+    "with-item": "with helpers.count(int(lanes.nodes.sum())):\n        n = 1",
 }
 
 #: The same operations written without a sync.
@@ -758,6 +759,12 @@ SURFACE_DIFFERENCES = {
         "the round loop's scanned functions, so a test can see the scope",
     ("analysis", "RepoContext", "corpus()"):
         "kernel-contract reads tests/ for each kernel's parity test",
+    ("obs", "Span", None):
+        "host-time spans of the port's round and service loops, beside the "
+        "reference's trace schema",
+    ("obs", "SpanRecorder", None):
+        "host-time spans of the port's round and service loops, beside the "
+        "reference's trace schema",
 }
 
 
