@@ -32,7 +32,9 @@ Phases (any failure raises and exits non-zero):
      (nodes/s); the same first rounds driven step by step through
      ``make_step`` with the kernel checked against the plain version on
      every step's live masks; the round time split into expand and
-     balance; one round under the profiler for the card's busy share;
+     balance; one round, a replay of its CUDA graph, under the profiler:
+     the card's busy share, and ``count_stats``'s kernels on the card
+     equal to the launches counted for the round;
   5. time ``count_stats`` (profiler device time, and CUDA events) and its
      plain version at (n=300, w=10, L=4096) and (n=100, w=4, L=1024),
      and compute the bounds from the inputs: bytes (the one it is held
@@ -48,7 +50,9 @@ Phases (any failure raises and exits non-zero):
      to their serial optima; the same first rounds again with the kernel
      checked against the plain version on every step's live inputs; one
      round's split into expand, balance and an admission's rebuild; one
-     service round under the profiler;
+     service round, a graph replay, under the profiler, its
+     ``stacked_count_stats`` kernels on the card equal to the launches
+     counted;
   8. the test-sized service mix (a deadline, a budget, a cancel) on the
      card and on the CPU: identical results, tickets, rounds and lanes
      after every round;
@@ -681,7 +685,7 @@ def phase_drain(report):
 
 def phase_cell60(report, rounds_after_boot=2):
     from repro_torch.convert import words
-    from repro_torch.core import steal
+    from repro_torch.core import round_graph, steal
     from repro_torch.core.distributed import make_round
     from repro_torch.core.engine import init_lanes, make_expand, make_step
     from repro_torch.kernels import bitset_ops, ref
@@ -766,8 +770,28 @@ def phase_cell60(report, rounds_after_boot=2):
     report["cell60_split"] = split
     expand = make_expand(problem, 64)
 
-    # (d) One more round under the profiler: how busy the card is.
-    busy = {}
+    # (d) One more round under the profiler, a replay of the graph that
+    # round 2 captured: the kernels the card ran held against the launches
+    # counted for them (a replay adds the captured counts, it does not
+    # count), and how busy the card is (its output is dropped).  Then the
+    # eager expand and balance alone.
+    replays = round_graph.COUNTS["replays"]
+    before = bitset_ops.LAUNCHES["count_stats"]
+    busy = {"round": device_busy(lambda: round_fn(lanes))}
+    busy["round"].pop("out")
+    counted = bitset_ops.LAUNCHES["count_stats"] - before
+    ran = busy["round"]["kernel_launches"]["count_stats"]
+    check(round_graph.COUNTS["replays"] == replays + 1,
+          "cell60: the profiled round did not replay the graph")
+    check(counted == ran == 64 + il,
+          f"cell60: a replayed round counted {counted} count_stats "
+          f"launches and the card ran {ran} (want 64 + {il})")
+    print(f"phase 4: profiled graph replay: wall "
+          f"{busy['round']['wall_ms']:.1f} ms, device busy "
+          f"{busy['round']['device_ms']:.2f} ms (share "
+          f"{busy['round']['busy_share']:.3f}) over "
+          f"{busy['round']['device_ops']} device operations; count_stats "
+          f"ran {ran} times, counted {counted}", flush=True)
     for name, fn in (("expand", expand),
                      ("balance", lambda l: steal.balance_device(problem, l))):
         busy[name] = device_busy(lambda: fn(lanes))
@@ -803,7 +827,7 @@ def device_busy(fn):
     the profiler records inside it: the events that ran on the card
     (kernels, copies), not the host operations that launched them, which
     carry the same time again (``all_events_ms`` sums both).  With each
-    of the port's kernels' share,
+    of the port's kernels' share and the times the card ran it,
     the time of each group of ``KERNEL_GROUPS`` and the 5 longest
     kernels."""
     from torch.autograd import DeviceType
@@ -813,6 +837,7 @@ def device_busy(fn):
         wall_ms, out = sync_ms(fn)
     device_us, all_us, ops = 0.0, 0.0, 0
     kernel_us = dict.fromkeys(KERNELS, 0.0)
+    kernel_n = dict.fromkeys(KERNELS, 0)
     groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
     by_name = {}
     for evt in prof.key_averages():
@@ -826,6 +851,7 @@ def device_busy(fn):
         for name in KERNELS:
             if is_kernel(name, evt.key):
                 kernel_us[name] += us
+                kernel_n[name] += evt.count
         groups[next((g for g, pat in KERNEL_GROUPS
                      if re.search(pat, evt.key, re.IGNORECASE)),
                     "other")] += us
@@ -834,6 +860,7 @@ def device_busy(fn):
                 busy_share=device_us / 1e3 / wall_ms, device_ops=ops,
                 all_events_ms=all_us / 1e3,
                 kernel_ms={k: v / 1e3 for k, v in kernel_us.items()},
+                kernel_launches=kernel_n,
                 groups_ms={g: us / 1e3 for g, us in groups.items()},
                 top_ms=[(k[:80], us / 1e3) for k, us in top], out=out)
 
@@ -1128,6 +1155,7 @@ def phase_service_steps(report, check_rounds=3):
     held against the plain version on the live inputs, then two rounds
     timed by the service's own spans, and one round under the profiler.  Returns the service (mid-run) and its live
     kernel inputs."""
+    from repro_torch.core import round_graph
     from repro_torch.core.api import tree_map
     from repro_torch.kernels import bitset_ops, ref
     from repro_torch.obs import spans
@@ -1152,6 +1180,7 @@ def phase_service_steps(report, check_rounds=3):
         return out
 
     batch_problem.stacked_count_stats = checked_kernel
+    failed = round_graph.COUNTS["capture_failed"]
     try:
         for _ in range(check_rounds):
             svc.step_round()
@@ -1160,6 +1189,13 @@ def phase_service_steps(report, check_rounds=3):
     print(f"phase 7: kernel == plain on all {checked[0]} launches of the "
           f"first {check_rounds} service rounds (slots {svc.slot_rid})",
           flush=True)
+    # The check reads the kernel's output back to the host, which a CUDA
+    # graph's capture refuses: those rounds ran eager after the warm-up.
+    # (b) and (c) run the same body in a fresh graph: the first round of
+    # (b) warms it, the second captures and replays, (c) replays.
+    check(round_graph.COUNTS["capture_failed"] == failed + check_rounds - 1,
+          "service: the checked rounds did not fall back to eager")
+    svc._round = round_graph.GraphedRound(svc._round.fn)
 
     # (b) Two more rounds of the service, timed by its own spans: the
     # admission and its rebuild, expand, balance, replay, the readback,
@@ -1182,18 +1218,31 @@ def phase_service_steps(report, check_rounds=3):
               f"{r['active_after']}", flush=True)
     report["service_split"] = split
 
-    # (c) One service round under the profiler (its result is dropped).
+    # (c) One service round under the profiler, a replay of the graph (its
+    # result is dropped): the kernels the card ran held against the
+    # launches counted for them.
+    il = svc.lanes.idx.shape[1]
+    replays = round_graph.COUNTS["replays"]
+    before = bitset_ops.LAUNCHES["stacked_count_stats"]
     busy = device_busy(lambda: svc._round(svc.lanes))
     busy.pop("out")
-    print(f"phase 7: profiled service round: wall {busy['wall_ms']:.1f} ms, "
+    counted = bitset_ops.LAUNCHES["stacked_count_stats"] - before
+    ran = busy["kernel_launches"]["stacked_count_stats"]
+    check(round_graph.COUNTS["replays"] == replays + 1,
+          "service: the profiled round did not replay the graph")
+    check(counted == ran == cfg["steps"] + il,
+          f"service: a replayed round counted {counted} stacked_count_stats "
+          f"launches and the card ran {ran} (want {cfg['steps']} + {il})")
+    print(f"phase 7: profiled service round (graph replay): wall "
+          f"{busy['wall_ms']:.1f} ms, "
           f"device busy {busy['device_ms']:.2f} ms (share "
           f"{busy['busy_share']:.3f}) over {busy['device_ops']} device "
           f"operations, stacked_count_stats "
-          f"{busy['kernel_ms']['stacked_count_stats']:.2f} ms", flush=True)
+          f"{busy['kernel_ms']['stacked_count_stats']:.2f} ms, ran {ran} "
+          f"times, counted {counted}", flush=True)
     report["service_busy"] = busy
 
     # The kernel's live inputs at this point, for the timing phase.
-    il = svc.lanes.idx.shape[1]
     ar = torch.arange(svc.num_lanes, device=DEV)
     d = svc.lanes.depth.clamp(0, il - 1)
     states = tree_map(lambda x: x[ar, d], svc.lanes.stack)

@@ -53,8 +53,9 @@ The pass is static, in three stages:
    ``.nonzero()``; ``torch.unique``; ``torch.masked_select``; one-argument
    ``torch.where``; ``repeat_interleave`` without ``output_size``; an
    index by a boolean tensor; ``synchronize()``; ``print`` of a device
-   value; ``torch.tensor`` / ``torch.as_tensor`` (a blocking
-   host-to-device copy on the card).
+   value; ``torch.tensor`` / ``torch.as_tensor`` and an index by a
+   Python list (a host-to-device copy on the card, which a CUDA graph's
+   capture refuses).
 """
 
 from __future__ import annotations
@@ -75,6 +76,9 @@ ROUND_LOOP_ROOTS: Tuple[str, ...] = (
     "repro_torch.core.engine:replay_path",
     "repro_torch.core.steal:balance_device",
     "repro_torch.core.distributed:make_round.round_fn",
+    # The single-device round's CUDA graph: warm-up, capture and replay.
+    "repro_torch.core.round_graph:GraphedRound.__call__",
+    "repro_torch.core.round_graph:eager.counted",
     "repro_torch.core.distributed:make_distributed_round.round_fn",
     "repro_torch.core.distributed:cross_device_assign",
     "repro_torch.core.distributed:replay_per_device",
@@ -645,11 +649,11 @@ class _Taint:
                 return True
         return False
 
-    def _bool_index(self, sub: ast.Subscript) -> bool:
+    def _index_by(self, sub: ast.Subscript, test) -> bool:
+        """Does a part of the index of device value ``sub`` pass ``test``?"""
         index = sub.slice
         parts = index.elts if isinstance(index, ast.Tuple) else [index]
-        return self.tainted_expr(sub.value) and any(
-            self.boolish_expr(p) for p in parts)
+        return self.tainted_expr(sub.value) and any(test(p) for p in parts)
 
     def hazards(self) -> List[Tuple[ast.AST, str]]:
         node = self.info.node
@@ -695,9 +699,17 @@ class _Taint:
                 msg = self._call_hazard(expr)
                 if msg is not None:
                     out.append((expr, msg))
-            elif isinstance(expr, ast.Subscript) and self._bool_index(expr):
+            elif isinstance(expr, ast.Subscript) and self._index_by(
+                    expr, self.boolish_expr):
                 out.append((expr, "indexing by a boolean tensor is a "
                                   f"`nonzero`: it {_SYNC_HINT}"))
+            elif isinstance(expr, ast.Subscript) and self._index_by(
+                    expr, lambda p: isinstance(p, (ast.List, ast.ListComp))):
+                out.append((expr, "indexing by a Python list builds a "
+                                  "host tensor: on the card a host-to-"
+                                  "device copy each call, which a CUDA "
+                                  "graph's capture refuses; slice, or "
+                                  "stack the picked parts"))
         return out
 
 

@@ -45,7 +45,7 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
 import torch
 
 from repro_torch import roofline
-from repro_torch.core import steal
+from repro_torch.core import round_graph, steal
 from repro_torch.core.api import (UNVISITED, BinaryProblem, resolve_device,
                                   tree_leaves, tree_map)
 from repro_torch.core.engine import Lanes, init_lanes, make_expand
@@ -394,19 +394,34 @@ def problems_per_shard(problem, mesh: Mesh) -> List[BinaryProblem]:
 
 
 def make_round(problem, steps_per_round: int, fused_steps: int = 1, *,
-               mesh: Optional[Mesh] = None, max_ship: int = 16
-               ) -> Callable:
+               mesh: Optional[Mesh] = None, max_ship: int = 16,
+               calls: Optional[int] = None) -> Callable:
     """Build the round body.  With no mesh (or a mesh of one shard) it
     maps ``Lanes`` to ``(lanes, open_work)``; ``open_work`` is int32[K] on
     the device: per instance, active lanes plus donatable slots (0 means
     drained).  With a mesh of several shards it is
-    :func:`make_distributed_round`."""
+    :func:`make_distributed_round`, eager.
+
+    The single-device body is a ``round_graph.GraphedRound``: on a CUDA
+    device its first call runs eager (the warm-up), its second captures
+    the whole round (64 engine steps, the steal, the D+1 replay passes,
+    the open-work count) as one CUDA graph, and every later call copies
+    the lanes into the graph's static inputs, replays it and returns
+    clones of its static outputs.  The kernels and their order are the
+    same, so is the tree; ``_build.LAUNCHES`` gains the captured launches
+    at every replay.  On any other device it is the eager round.  A
+    replayed round records one ``graph`` span in place of its
+    ``expand``, ``balance`` and ``replay`` spans.  ``calls``, the most
+    calls the caller will make where it knows it, keeps a body eager that
+    gets too few to pay for its capture (``round_graph.MIN_CALLS``)."""
     if mesh is not None and mesh.size > 1:
-        return make_distributed_round(problem, mesh, steps_per_round,
-                                      max_ship, fused_steps)
+        return round_graph.eager(
+            make_distributed_round(problem, mesh, steps_per_round, max_ship,
+                                   fused_steps), "mesh")
     if mesh is not None:
         problem = problems_per_shard(problem, mesh)[0]
-        single = make_round(problem, steps_per_round, fused_steps)
+        single = make_round(problem, steps_per_round, fused_steps,
+                            calls=calls)
 
         def one_shard(lanes: ShardedLanes):
             out, open_work = single(lanes.shards[0])
@@ -420,7 +435,7 @@ def make_round(problem, steps_per_round: int, fused_steps: int = 1, *,
         lanes = steal.balance_device(problem, lanes)
         return lanes, _open_work(lanes)
 
-    return round_fn
+    return round_graph.GraphedRound(round_fn, calls=calls)
 
 
 def make_distributed_round(problem, mesh: Mesh, steps_per_round: int,

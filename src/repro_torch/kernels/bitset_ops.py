@@ -302,4 +302,6 @@ def domination_stats(cadj: torch.Tensor, dominated: torch.Tensor,
     ``(best_coverage, branch_vertex, undominated)``."""
     mask = fullm[None, :] & ~dominated
     out = count_stats(cadj, mask, cand)
-    return out[:, [BEST, ARG, MASK_COUNT]]
+    # A list index would become a host tensor copied to the card at every
+    # call, a copy a CUDA graph's capture refuses: stack the columns.
+    return torch.stack((out[:, BEST], out[:, ARG], out[:, MASK_COUNT]), dim=1)

@@ -2,8 +2,9 @@
 
 Where :mod:`repro_torch.obs.collect` counts what a round did, a span says
 how long the host spent on each phase of it: one span a phase, never one
-an engine step or a replay pass, so a phase that later runs as one CUDA
-graph keeps its span around the replay.
+an engine step or a replay pass.  A round that replays its CUDA graph
+(``core.round_graph``) runs none of the phases' host code: it records one
+``graph`` span in place of ``expand``, ``balance`` and ``replay``.
 
 ================  ===========================================  ===========
 span              where                                        parent
@@ -23,6 +24,8 @@ span              where                                        parent
 ``request``       ``SolverService.submit`` to the request's    --
                   terminal state (carries its ``rid``)
 ``queued``        ``submit`` to the request's admission        ``request``
+``graph``         a replayed round's copy-in, graph launch      ``round``
+                  and clone-out (``core.round_graph``)
 ================  ===========================================  ===========
 
 A name may be opened in more than one function (``balance`` twice a

@@ -291,7 +291,7 @@ class Solver:
                               max_ship=cfg.max_ship)
         boot_fn = (make_round(bound, cfg.bootstrap_steps,
                               fused_steps=cfg.fused_steps, mesh=mesh,
-                              max_ship=cfg.max_ship)
+                              max_ship=cfg.max_ship, calls=bootstrap_rounds)
                    if bootstrap_rounds else round_fn)
 
         pool: list = []

@@ -500,3 +500,126 @@ def test_sharded_service_on_the_card_equals_the_cpu():
     assert {r: v.optimum for r, v in gpu.results.items()} == {
         r: v.optimum for r, v in cpu.results.items()}
     assert_lanes_equal(gpu.lanes.gather(), cpu.lanes.gather())
+
+
+def _launch_delta(before):
+    return {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,spec,lanes", [("vc", "reg:300:4:1", 4096),
+                                               ("ds", "gnp:60:10:5", 1024),
+                                               ("ss", "ss:36:0", 1024)])
+def test_graphed_round_equals_the_eager_round(family, spec, lanes):
+    """20 rounds of ``make_round``'s CUDA graph (warm-up, capture, 18
+    replays) against the same body run eager, from one root: every lane
+    field and the open work bitwise, and the same launches, each round;
+    vc fills its 4096 lanes within them."""
+    need_card()
+    from repro_torch.core import round_graph
+    from repro_torch.core.distributed import make_round
+    from repro_torch.core.engine import init_lanes
+    problem = registry.problem(family, spec).build(device="cuda")
+    graphed = make_round(problem, 64)
+    round_graph.reset_counts()
+    a = b = init_lanes(problem, lanes)
+    for _ in range(20):
+        before = dict(_build.LAUNCHES)
+        a, open_a = graphed(a)
+        mid = dict(_build.LAUNCHES)
+        got = _launch_delta(before)
+        b, open_b = graphed.fn(b)
+        assert got == _launch_delta(mid)
+        assert_lanes_equal((a, open_a), (b, open_b))
+    assert round_graph.COUNTS == dict(captures=1, replays=19, cpu=0, mesh=0,
+                                      warmup=1, capture_failed=0, short=0)
+    if family == "vc":
+        assert bool(a.active.all())
+
+
+@pytest.mark.gpu
+def test_graphed_service_equals_the_eager_service():
+    """The stacked service with its round graphed against a twin whose
+    round runs eager, step for step: admissions write the slot tables in
+    place between rounds, and a resize at round 8 rebuilds the round (a
+    new key, a new capture).  Results, open work, lanes and launches
+    equal every round; no capture falls back."""
+    need_card()
+    from repro_torch.core import round_graph
+    mix = [("vc", "gnp:40:20:3"), ("ds", "gnp:30:15:2"), ("vc", "reg:36:4:3"),
+           ("ds", "gnp:25:20:6"), ("ds", "gnp:40:15:3"), ("vc", "gnp:35:25:8"),
+           ("vc", "gnp:40:15:1"), ("ds", "gnp:32:20:4")]
+    svcs = [Solver(SolverConfig(lanes=512, steps_per_round=16,
+                                device="cuda")).serve(max_n=40, slots=3)
+            for _ in range(2)]
+    graphed, eager = svcs
+    eager._round = eager._round.fn
+    for svc in svcs:
+        for rid, (family, spec) in enumerate(mix):
+            svc.submit(SolveRequest(rid=rid, graph=parse_graph_instance(spec),
+                                    family=family))
+    round_graph.reset_counts()
+    rounds = 0
+    while graphed._has_work() or eager._has_work():
+        if rounds == 8:
+            for svc in svcs:
+                svc.resize(num_lanes=384)
+            eager._round = eager._round.fn
+        before = dict(_build.LAUNCHES)
+        open_g = graphed.step_round()
+        mid = dict(_build.LAUNCHES)
+        got = _launch_delta(before)
+        open_e = eager.step_round()
+        assert got == _launch_delta(mid)
+        assert np.array_equal(open_g, open_e)
+        assert_lanes_equal(graphed.lanes, eager.lanes)
+        rounds += 1
+        assert rounds < 400
+    assert rounds >= 20
+    assert {r: (v.optimum, v.retired_round) for r, v in
+            graphed.results.items()} == {
+        r: (v.optimum, v.retired_round) for r, v in eager.results.items()}
+    counts = round_graph.COUNTS
+    assert counts["capture_failed"] == counts["cpu"] == counts["mesh"] \
+        == counts["short"] == 0
+    assert counts["captures"] == counts["warmup"] == 2
+    assert counts["replays"] == rounds - 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,spec", [("vc", "reg:300:4:1"),
+                                         ("ds", "gnp:60:10:5")])
+def test_a_replayed_round_runs_the_launches_it_counts(family, spec):
+    """A graph replay adds the launches its capture counted to
+    ``_build.LAUNCHES`` without reaching the launcher: the profiler's
+    count of the port's kernels on the card in one replayed round equals
+    that addition."""
+    need_card()
+    import re
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import round_graph
+    from repro_torch.core.distributed import make_round
+    from repro_torch.core.engine import init_lanes
+    problem = registry.problem(family, spec).build(device="cuda")
+    round_fn = make_round(problem, 64)
+    lanes = init_lanes(problem, 1024)
+    for _ in range(3):                  # warm-up, capture, replay
+        lanes, _ = round_fn(lanes)
+    replays = round_graph.COUNTS["replays"]
+    before = dict(_build.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        round_fn(lanes)
+        torch.cuda.synchronize()
+    assert round_graph.COUNTS["replays"] == replays + 1
+    ran = Counter()
+    for evt in prof.key_averages():
+        for name in _build.LAUNCHES:    # count_stats is not stacked_...
+            if evt.device_type == DeviceType.CUDA and re.search(
+                    r"(?<![A-Za-z_])" + name + r"(_wide)?_kernel", evt.key):
+                ran[name] += evt.count
+    counted = {k: n for k, n in _launch_delta(before).items() if n}
+    assert counted["count_stats"] > 0
+    assert dict(ran) == counted

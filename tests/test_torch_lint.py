@@ -139,6 +139,8 @@ HAZARDS = {
     "synchronize": "torch.cuda.synchronize()",
     "print": "print(lanes.best)",
     "host-copy": "n = torch.tensor(0, device=lanes.idx.device)",
+    "list-index": "n = lanes.inst[[0, 1]]",
+    "list-index-columns": "n = lanes.idx[:, [0, 1]]",
     "with-item": "with helpers.count(int(lanes.nodes.sum())):\n        n = 1",
 }
 
@@ -158,6 +160,7 @@ n = lanes.nodes.sum()
     else:
         n = lanes.nodes.max()
     sel = lanes.inst[first, lanes.depth.clamp(0, il - 1)]
+    cols = torch.stack((lanes.idx[:, 0], lanes.idx[:, 1]), dim=1)
     n = helpers.count(lanes)"""
 
 HELPERS = {"src/repro_torch/core/helpers.py": """\
