@@ -530,10 +530,11 @@ def sync_ms(fn):
 def span_ms(run, round_no):
     """The program's own spans of round ``round_no`` of span run ``run``:
     host milliseconds of each phase by name (self times, so ``admit``
-    leaves out its ``rebuild``) and ``round``, the whole round."""
+    leaves out its ``rebuild``) and ``round``, the whole round; the
+    device spans of the same names are left out."""
     from repro_torch.obs import spans
     mine = [s for s in spans.RECORDER.spans(run)
-            if s.round == round_no and s.rid is None]
+            if s.round == round_no and s.rid is None and s.clock == "host"]
     own = spans.self_ns(mine)
     out = {}
     for s in mine:

@@ -1,0 +1,6 @@
+"""`balance_dev_ms.solve`: device milliseconds a window round in the
+program's ``balance`` device spans (``portbench/device_spans.py``)."""
+
+from portbench.device_spans import device_ms
+
+read = device_ms("balance")

@@ -411,7 +411,9 @@ def make_round(problem, steps_per_round: int, fused_steps: int = 1, *,
     same, so is the tree; ``_build.LAUNCHES`` gains the captured launches
     at every replay.  On any other device it is the eager round.  A
     replayed round records one ``graph`` span in place of its
-    ``expand``, ``balance`` and ``replay`` spans.  ``calls``, the most
+    ``expand``, ``balance`` and ``replay`` spans; on the card every round,
+    eager or replayed, records their device spans (``obs/spans.py``),
+    a mesh of several shards none.  ``calls``, the most
     calls the caller will make where it knows it, keeps a body eager that
     gets too few to pay for its capture (``round_graph.MIN_CALLS``)."""
     if mesh is not None and mesh.size > 1:

@@ -219,7 +219,7 @@ def make_expand(problem: BinaryProblem, num_steps: int,
     step = make_step(problem)
 
     def expand(lanes: Lanes) -> Lanes:
-        with spans.span("expand"):
+        with spans.span("expand", device=True):
             for _ in range(num_steps):
                 ran = lanes.active.any().to(torch.int32)
                 lanes = step(lanes)._replace(steps=lanes.steps + ran)

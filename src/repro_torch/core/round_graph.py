@@ -42,7 +42,11 @@ same order, the same tree bitwise.
 A replayed round records one ``graph`` span (``obs/spans.py``) around the
 copy-in, the replay and the clone-out; the ``expand``, ``balance`` and
 ``replay`` spans inside the body are recorded only on eager rounds and
-while capturing.
+while capturing.  Their device spans are recorded on every CUDA round:
+an eager round arms them (``spans.device_phases``) and the body records
+fresh events; the capture arms them too, so its events become
+event-record nodes of the graph, which the wrapper keeps and hands back
+to the recorder (``spans.pend_device``) at every replay.
 """
 
 from __future__ import annotations
@@ -76,9 +80,10 @@ def reset_counts() -> None:
 
 def eager(fn: Callable, reason: str) -> Callable:
     """The round body ``fn`` left eager, each call counted under
-    ``reason`` in :data:`COUNTS`."""
+    ``reason`` in :data:`COUNTS`; it records no device span."""
     def counted(lanes):
         COUNTS[reason] += 1
+        spans.pend_device(())
         return fn(lanes)
 
     return counted
@@ -137,37 +142,44 @@ class GraphedRound:
         self._static_in = None
         self._static_out = None
         self._launches: Dict[str, int] = {}
+        self._device_spans: list = []
         self._failed = False
 
     def __call__(self, lanes):
         device = lanes.idx.device
         if not self.backend.applies(device):
             COUNTS["cpu"] += 1
-            return self.fn(lanes)
+            return self._eager(lanes, device)
         if self._failed:
             COUNTS["capture_failed"] += 1
-            return self.fn(lanes)
+            return self._eager(lanes, device)
         if self.calls is not None and self.calls < MIN_CALLS:
             COUNTS["short"] += 1
-            return self.fn(lanes)
+            return self._eager(lanes, device)
         key = _key(lanes)
         if key != self._key:
             self._graph = self._static_in = self._static_out = None
             self._key = key
             COUNTS["warmup"] += 1
-            return self.fn(lanes)
+            return self._eager(lanes, device)
         if self._graph is None and not self._capture(lanes, device):
             COUNTS["capture_failed"] += 1
-            return self.fn(lanes)
+            return self._eager(lanes, device)
         COUNTS["replays"] += 1
         with spans.span("graph"):
             for static, leaf in zip(tree_leaves(self._static_in),
                                     tree_leaves(lanes)):
                 static.copy_(leaf)
             self._graph.replay()
+            spans.pend_device(self._device_spans)
             for name, n in self._launches.items():
                 _build.LAUNCHES[name] += n
             return tree_map(torch.clone, self._static_out)
+
+    def _eager(self, lanes, device: torch.device):
+        """``fn(lanes)`` run eager, its device spans armed on the card."""
+        with spans.device_phases(device):
+            return self.fn(lanes)
 
     def _capture(self, lanes, device: torch.device) -> bool:
         """Capture ``fn`` on static inputs shaped as ``lanes``; False (and
@@ -176,7 +188,8 @@ class GraphedRound:
         before = dict(_build.LAUNCHES)
         graph = self.backend(device)
         try:
-            out = graph.capture(lambda: self.fn(static_in))
+            with spans.device_phases(device) as phases:
+                out = graph.capture(lambda: self.fn(static_in))
         except RuntimeError as e:
             self._failed = True
             warnings.warn(f"the round body could not be captured as a CUDA "
@@ -188,6 +201,7 @@ class GraphedRound:
                         for name, n in _build.LAUNCHES.items()}
             _build.LAUNCHES.update(before)
         self._graph, self._static_in, self._static_out = graph, static_in, out
+        self._device_spans = phases.recorded
         self._launches = {name: n for name, n in captured.items() if n}
         COUNTS["captures"] += 1
         return True

@@ -153,7 +153,7 @@ def assign_tasks(lanes: Lanes, bits: torch.Tensor, tdepth: torch.Tensor,
     the state stack.  Returns the lanes and the mask of those that took a
     row, which :func:`replay_received` then rebuilds.  ``cross`` (set by
     the cross-device steal) also counts each receipt in ``t_c``."""
-    with spans.span("balance"):
+    with spans.span("balance", device=True):
         my_valid = valid & ~lanes.active
         recv = my_valid.to(torch.int32)
         return lanes._replace(
@@ -173,7 +173,7 @@ def replay_received(problem: BinaryProblem, lanes: Lanes,
     index from its instance's root and owns the stolen subtree from
     ``base`` = its depth; the other lanes keep their stacks.  Lane-local,
     so lanes of several shards on one device replay in one batch."""
-    with spans.span("replay"):
+    with spans.span("replay", device=True):
         bits = torch.where(received[:, None], lanes.idx, UNVISITED).to(
             torch.int8)
         depth = torch.where(received, lanes.depth, 0).to(torch.int32)
@@ -199,7 +199,7 @@ def balance_plan(lanes: Lanes) -> Tuple[Lanes, torch.Tensor, torch.Tensor,
     """The matching and extraction of one intra-device steal round:
     ``(lanes', bits, task_depth, task_inst, matched)``, thief i's row in
     row i, for :func:`install_tasks` (or :func:`assign_tasks`)."""
-    with spans.span("balance"):
+    with spans.span("balance", device=True):
         slots = donor_slots(lanes)
         thieves = thief_mask(lanes)
         # Every bound idle lane "requests" this round (paper's T_R

@@ -1,4 +1,5 @@
-"""Host-time spans of the port's round and service loops.
+"""Spans of the port's round and service loops: the host's time of each
+phase and, on the card, the device's time of a round's phases.
 
 Where :mod:`repro_torch.obs.collect` counts what a round did, a span says
 how long the host spent on each phase of it: one span a phase, never one
@@ -28,10 +29,38 @@ span              where                                        parent
                   and clone-out (``core.round_graph``)
 ================  ===========================================  ===========
 
+On a CUDA round of one device (``core.round_graph.GraphedRound``, eager
+or replayed) the phases ``expand``, ``balance`` (twice) and ``replay``
+also record a *device span*: a ``Span`` of ``clock`` "device", no parent,
+and the run and round of the round that read it.
+
+================  ===========================================  ===========
+device span       where the events are recorded                clock
+================  ===========================================  ===========
+``expand``        around ``make_expand.expand``'s 64 steps     ``device``
+``balance``       around ``balance_plan`` and ``assign_tasks``  ``device``
+``replay``        around ``replay_received``'s D+1 passes      ``device``
+================  ===========================================  ===========
+
+Two timing CUDA events on the round's stream bound each one, and nothing
+else is enqueued.  While ``GraphedRound`` captures, the events are
+recorded into the graph (``external=True``: event-record nodes), so every
+replay records them again; the wrapper keeps them and hands them back to
+the recorder at each replay.  The host never waits for them: the round's
+own readback (``Solver.solve``'s ``readback``, ``step_round``'s) has
+already waited for the card when :func:`read_device` reads their elapsed
+times and files the spans.  Their durations are the card's; their
+positions are placed so that the round's last device span ends when
+:func:`read_device` runs, on the host's clock (the two clocks share no
+reading).  On the CPU, on a mesh of several shards, and with the
+recorder off, no event is made and no device span is filed.
+
 A name may be opened in more than one function (``balance`` twice a
-round): readers sum by name.  Stamps are ``time.perf_counter_ns()``; the
-recorder creates no tensor and reads none, so a round records the same
-work with spans on or off, and none of this waits for the device.
+round): readers sum by name and ``clock``.  Stamps are
+``time.perf_counter_ns()``.  The recorder creates no tensor and reads
+none, and on the card enqueues nothing but the device spans' event
+records, so a round computes the same lanes with spans on or off, and
+none of this waits for the device.
 
 One process-wide :data:`RECORDER` keeps the finished spans in a ring of
 ``2**16`` (the oldest dropped), so a days-long solve holds bounded
@@ -44,7 +73,8 @@ run (:func:`begin_run`) of its mode, ``"solve"`` or ``"service"``.
 Read them in memory (:func:`newest_run`, :func:`run_spans`,
 :func:`self_ns`) or as a Chrome trace-event file (:func:`export_chrome`)
 on the clock of ``torch.profiler``'s ``export_chrome_trace``, so that
-the two files load together in Perfetto.
+the two files load together in Perfetto; device spans are a row of
+their own there.
 
 The spans are not records of the JSONL trace (``obs/trace.py``): that
 schema is the reference's, record for record.
@@ -73,7 +103,7 @@ class Span(NamedTuple):
     """One finished span: ``parent`` is the id of the span that caused it
     (None for a root), ``run`` the id of its solve or service, ``round``
     the round it opened in, ``rid`` the request's id (``request`` and
-    ``queued`` only)."""
+    ``queued`` only), ``clock`` "host" or, for a device span, "device"."""
 
     id: int
     name: str
@@ -83,6 +113,7 @@ class Span(NamedTuple):
     run: int
     round: int
     rid: Optional[int] = None
+    clock: str = "host"
 
     @property
     def duration_ns(self) -> int:
@@ -92,22 +123,53 @@ class Span(NamedTuple):
 class _Opened:
     """The context manager :meth:`SpanRecorder.span` returns."""
 
-    __slots__ = ("rec", "name", "run", "round", "pushed")
+    __slots__ = ("rec", "name", "run", "round", "pushed", "device", "start")
 
     def __init__(self, rec: "SpanRecorder", name: str, run: Optional[int],
-                 round_no: Optional[int]):
+                 round_no: Optional[int], device: bool = False):
         self.rec, self.name, self.run, self.round = rec, name, run, round_no
         self.pushed = False
+        self.device = device
+        self.start = None
 
     def __enter__(self) -> "_Opened":
         if self.rec.enabled:
             self.rec._push(self.name, self.run, self.round)
             self.pushed = True
+        if self.device:
+            self.start = self.rec._event()
         return self
 
     def __exit__(self, *exc) -> bool:
+        if self.start is not None:
+            self.rec._close_device(self.name, self.start)
         if self.pushed:
             self.rec._pop()
+        return False
+
+
+class _DevicePhases:
+    """The context manager :meth:`SpanRecorder.device_phases` returns:
+    ``recorded`` holds the ``(name, start, end)`` events of the device
+    spans opened inside it."""
+
+    __slots__ = ("rec", "device", "recorded", "outer")
+
+    def __init__(self, rec: "SpanRecorder", device):
+        self.rec, self.device = rec, device
+        self.recorded: list = []
+        self.outer = None
+
+    def __enter__(self) -> "_DevicePhases":
+        local = self.rec._local
+        self.outer = getattr(local, "armed", None)
+        if self.rec.enabled and self.device.type == "cuda":
+            local.armed = (self.device, self.recorded)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.rec._local.armed = self.outer
+        self.rec.pend_device(self.recorded)
         return False
 
 
@@ -126,6 +188,7 @@ class SpanRecorder:
         self._newest: Dict[str, int] = {}         # mode -> newest run
         self._round: Dict[int, int] = {}          # run -> its newest round
         self._local = threading.local()
+        self._pending: list = []                  # the last round's events
 
     # -- recording -----------------------------------------------------------
 
@@ -139,11 +202,72 @@ class SpanRecorder:
         return run
 
     def span(self, name: str, *, run: Optional[int] = None,
-             round: Optional[int] = None) -> _Opened:
+             round: Optional[int] = None, device: bool = False) -> _Opened:
         """A span over a ``with`` block.  ``run`` and ``round`` default to
         the enclosing span's; a ``round`` given becomes the run's current
-        round, which request spans opened later take."""
-        return _Opened(self, name, run, round)
+        round, which request spans opened later take.  ``device``: inside
+        :meth:`device_phases`, also a device span of the same name over
+        the work the block enqueues."""
+        return _Opened(self, name, run, round, device)
+
+    def device_phases(self, device) -> _DevicePhases:
+        """Arm device spans for a round body run on ``device`` (a
+        ``torch.device``) inside the ``with`` block, and on leaving it
+        make its events the pending ones (:meth:`pend_device`).  Off the
+        card, or with the recorder off, nothing is armed and nothing is
+        left pending."""
+        return _DevicePhases(self, device)
+
+    def _event(self):
+        """A timing CUDA event recorded on the armed device's current
+        stream (into the graph while capturing), or None when unarmed."""
+        armed = getattr(self._local, "armed", None)
+        if armed is None:
+            return None
+        import torch
+        event = torch.cuda.Event(enable_timing=True, external=True)
+        event.record(torch.cuda.current_stream(armed[0]))
+        return event
+
+    def _close_device(self, name: str, start) -> None:
+        """Record the end event of device span ``name`` opened with
+        ``start`` and keep the pair among the armed block's spans."""
+        self._local.armed[1].append((name, start, self._event()))
+
+    def pend_device(self, recorded) -> None:
+        """Make ``recorded`` (``(name, start, end)`` events) the device
+        spans of the round just enqueued, replacing any that were never
+        read: a replayed graph records the same events again.  With the
+        recorder off nothing is pending."""
+        self._pending = list(recorded) if self.enabled else []
+
+    def read_device(self) -> int:
+        """File the pending device spans under the run and round of the
+        enclosing span; call it after the host has waited for the round.
+        Returns how many were filed (none when their events have not all
+        completed: this never waits).  Each elapsed time costs the host
+        some microseconds, so a span takes two reads, one for the first:
+        its start from the first span's and its duration."""
+        pending, self._pending = self._pending, []
+        if not self.enabled or not pending:
+            return 0
+        origin = pending[0][1]
+        try:       # raises unless both events have completed; never waits
+            ms = [(name, origin.elapsed_time(start) if start is not origin
+                   else 0.0, start.elapsed_time(end))
+                  for name, start, end in pending]
+        except RuntimeError:
+            return 0
+        stack = self._stack()
+        run, round_no = (stack[-1][4], stack[-1][5]) if stack else (0, 0)
+        now = time.perf_counter_ns()
+        last = max(start + took for _, start, took in ms)
+        for name, start, took in ms:
+            start_ns = now - round((last - start) * 1e6)
+            self._done.append(Span(
+                next(self._ids), name, start_ns, start_ns + round(took * 1e6),
+                None, run, round_no, clock="device"))
+        return len(ms)
 
     def _stack(self) -> list:
         try:
@@ -218,7 +342,9 @@ class SpanRecorder:
                 * _TRACE_BASE_INTERVAL_S * 1_000_000_000)
         pid = os.getpid()
         events = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
-                   "args": {"name": "repro_torch spans"}}]
+                   "args": {"name": "repro_torch spans"}},
+                  {"ph": "M", "name": "thread_name", "pid": pid, "tid": 2,
+                   "args": {"name": "device (CUDA events)"}}]
         for s in spans:
             args = {"id": s.id, "run": s.run, "round": s.round}
             if s.parent is not None:
@@ -227,8 +353,10 @@ class SpanRecorder:
                 args["rid"] = s.rid
             events.append({
                 "ph": "X", "name": s.name, "cat": "repro_torch", "pid": pid,
-                # Request spans overlap each other: a row of their own.
-                "tid": 1 if s.rid is not None else 0,
+                # Request spans overlap each other, device spans the host's:
+                # a row each of their own.
+                "tid": (2 if s.clock == "device"
+                        else 1 if s.rid is not None else 0),
                 "ts": (s.start_ns + offset - base) / 1e3,
                 "dur": s.duration_ns / 1e3, "args": args})
         with open(path, "w") as f:
@@ -263,9 +391,24 @@ RECORDER = SpanRecorder()
 
 
 def span(name: str, *, run: Optional[int] = None,
-         round: Optional[int] = None) -> _Opened:
+         round: Optional[int] = None, device: bool = False) -> _Opened:
     """:meth:`SpanRecorder.span` of :data:`RECORDER`."""
-    return RECORDER.span(name, run=run, round=round)
+    return RECORDER.span(name, run=run, round=round, device=device)
+
+
+def device_phases(device) -> _DevicePhases:
+    """:meth:`SpanRecorder.device_phases` of :data:`RECORDER`."""
+    return RECORDER.device_phases(device)
+
+
+def pend_device(recorded) -> None:
+    """:meth:`SpanRecorder.pend_device` of :data:`RECORDER`."""
+    RECORDER.pend_device(recorded)
+
+
+def read_device() -> int:
+    """:meth:`SpanRecorder.read_device` of :data:`RECORDER`."""
+    return RECORDER.read_device()
 
 
 def begin_run(mode: str) -> int:

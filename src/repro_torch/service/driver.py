@@ -609,6 +609,7 @@ class SolverService:
             self.rounds += 1
             with spans.span("readback"):
                 open_np = _host(open_vec)    # the one per-round readback
+            spans.read_device()
             with spans.span("retire"):
                 inst_delta = None
                 if col is not None:

@@ -345,6 +345,7 @@ class Solver:
             lanes, open_work = fn(lanes)
             with spans.span("readback"):
                 open_now = int(open_work.sum())
+            spans.read_device()
             if collector is not None:
                 collector.after_round(rounds + 1, lanes, open_now)
             return lanes, open_now

@@ -623,3 +623,73 @@ def test_a_replayed_round_runs_the_launches_it_counts(family, spec):
     counted = {k: n for k, n in _launch_delta(before).items() if n}
     assert counted["count_stats"] > 0
     assert dict(ran) == counted
+
+
+def _solve_rounds(family, spec, lanes, rounds, on):
+    """``rounds`` rounds of ``Solver.solve`` on the card, no listener, with
+    the span recorder on or off (on again afterwards)."""
+    from repro_torch.obs import spans
+    (spans.enable if on else spans.disable)()
+    try:
+        return Solver(SolverConfig(lanes=lanes, steps_per_round=64,
+                                   max_rounds=rounds, device="cuda")).solve(
+            registry.problem(family, spec))
+    finally:
+        spans.enable()
+
+
+def _syncs(fn):
+    """The synchronizing CUDA operations inside ``fn()``, counted as
+    ``chip_smoke.py``'s phase 25 counts them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["ds", "vc"])
+def test_graphed_rounds_record_one_device_span_per_phase(family):
+    """Ten rounds of a solve at 4096 lanes on the benchmark's graph: every
+    round, the eager warm-up, the capture (which replays at once) and
+    each later replay, files one device span per phase (``expand``, ``balance`` twice, ``replay``) of
+    the card's time, the replays without running the phases' host code.
+    The lanes are bitwise those of the same rounds with the recorder off,
+    and a round makes as many host syncs with it on as off (one)."""
+    need_card()
+    from collections import Counter
+    from repro_torch.core import round_graph
+    from repro_torch.obs import spans
+    spec, lanes = "reg:300:4:1", 4096
+    round_graph.reset_counts()
+    on = _solve_rounds(family, spec, lanes, 10, True)
+    run = spans.run_spans("solve")
+    assert round_graph.COUNTS["capture_failed"] == 0
+    assert round_graph.COUNTS["replays"] == 9       # the capture's round too
+    replayed = {s.round for s in run if s.name == "graph"}
+    assert replayed == set(range(2, 11))
+    for r in range(1, 11):
+        dev = [s for s in run if s.round == r and s.clock == "device"]
+        assert Counter(s.name for s in dev) == {"expand": 1, "balance": 2,
+                                                "replay": 1}, r
+        assert all(s.duration_ns > 0 for s in dev), r
+        # The host's phase spans: the warm-up's and the capture's only.
+        host = Counter(s.name for s in run if s.round == r
+                       and s.clock == "host")
+        assert host["expand"] == (1 if r <= 2 else 0), r
+    off = _solve_rounds(family, spec, lanes, 10, False)
+    assert on.stats == off.stats
+    assert_lanes_equal(on.lanes, off.lanes)
+    _solve_rounds(family, spec, lanes, 2, True)     # first use, not counted
+    per_round = {
+        state: _syncs(lambda: _solve_rounds(family, spec, lanes, 3, state))
+        - _syncs(lambda: _solve_rounds(family, spec, lanes, 2, state))
+        for state in (True, False)}
+    assert per_round == {True: 1, False: 1}

@@ -1,6 +1,7 @@
-"""The port's host-time spans (``repro_torch.obs.spans``): the recorder
-itself, the spans the solve and the service record, and that recording
-them changes nothing of the search."""
+"""The port's spans (``repro_torch.obs.spans``): the recorder itself, its
+device spans (with stand-in events: the CPU records none), the spans the
+solve and the service record, and that recording them changes nothing
+of the search."""
 
 from __future__ import annotations
 
@@ -192,6 +193,124 @@ def test_the_export_shares_the_profilers_clock(tmp_path):
         assert e["ts"] + e["dur"] <= span["ts"] + span["dur"] + slack
 
 
+# -- device spans ------------------------------------------------------------
+
+class _Event:
+    """A stand-in for a timing CUDA event: the milliseconds at which it
+    was recorded on a made-up device clock."""
+
+    def __init__(self, ms, done=True):
+        self.ms, self.done = ms, done
+
+    def elapsed_time(self, end):
+        if not (self.done and end.done):    # as torch's: it never waits
+            raise RuntimeError("Both events must be completed before "
+                               "calculating elapsed time.")
+        return end.ms - self.ms
+
+
+def _round_events(t0=0.0, done=True):
+    """A round's four device spans as the phases enqueue them."""
+    edges = [("expand", 1.0, 11.0), ("balance", 11.0, 11.25),
+             ("balance", 11.25, 11.5), ("replay", 11.5, 50.0)]
+    return [(name, _Event(t0 + a), _Event(t0 + b, done))
+            for name, a, b in edges]
+
+
+def test_device_spans_are_filed_with_the_reading_rounds_numbers():
+    rec = SpanRecorder()
+    run = rec.begin_run("solve")
+    rec.pend_device(_round_events())
+    with rec.span("round", run=run, round=4):
+        with rec.span("readback"):
+            pass
+        assert rec.read_device() == 4
+        assert rec.read_device() == 0           # read once
+    dev = [s for s in rec.spans(run) if s.clock == "device"]
+    assert [(s.name, s.round, s.parent) for s in dev] == [
+        ("expand", 4, None), ("balance", 4, None), ("balance", 4, None),
+        ("replay", 4, None)]
+    assert [s.duration_ns for s in dev] == [10_000_000, 250_000, 250_000,
+                                            38_500_000]
+    # Placed as on the device: back to back, the last ending last.
+    for a, b in zip(dev, dev[1:]):
+        assert a.end_ns == b.start_ns
+    assert max(s.end_ns for s in dev) == dev[-1].end_ns
+    assert {s.clock for s in rec.spans(run)} - {"device"} == {"host"}
+
+
+def test_device_spans_pending_are_the_last_rounds_and_never_waited_for():
+    rec = SpanRecorder()
+    rec.pend_device(_round_events())
+    rec.pend_device(_round_events(t0=100.0))   # a replay records them again
+    with rec.span("round", run=1, round=2):
+        assert rec.read_device() == 4
+    assert len(rec.spans()) == 5
+    rec.pend_device(_round_events(done=False))  # the card not waited for
+    with rec.span("round", run=1, round=3):
+        assert rec.read_device() == 0
+    assert len(rec.spans()) == 6
+    with rec.span("round", run=1, round=4):
+        assert rec.read_device() == 0           # dropped, not kept
+
+
+def test_device_phases_arm_nothing_off_the_card_or_with_the_recorder_off():
+    rec = SpanRecorder()
+    rec.pend_device(_round_events())        # a card round never read
+    with rec.device_phases(torch.device("cpu")) as phases:
+        with rec.span("expand", device=True):
+            pass
+    assert phases.recorded == []
+    assert rec.read_device() == 0           # a CPU round files none
+    rec.pend_device(_round_events())
+    rec.enabled = False
+    with rec.device_phases(torch.device("cuda")) as phases:
+        with rec.span("expand", device=True):
+            pass
+    assert phases.recorded == []
+    rec.pend_device(_round_events())        # a replay, the recorder off
+    assert rec.read_device() == 0
+    assert [s.clock for s in rec.spans()] == ["host"]
+
+
+def test_device_phases_collect_the_spans_opened_inside(monkeypatch):
+    rec = SpanRecorder()
+    clock = iter(range(100))
+    monkeypatch.setattr(rec, "_event", lambda: (
+        _Event(float(next(clock))) if getattr(rec._local, "armed", None)
+        else None))
+    with rec.span("expand", device=True):       # not armed: no device span
+        pass
+    with rec.device_phases(torch.device("cuda")) as phases:
+        with rec.span("expand", device=True):
+            with rec.span("inner"):
+                pass
+        with rec.span("readback"):              # a host span only
+            pass
+        with rec.span("replay", device=True):
+            pass
+    assert [(n, a.ms, b.ms) for n, a, b in phases.recorded] == [
+        ("expand", 0.0, 1.0), ("replay", 2.0, 3.0)]
+    assert getattr(rec._local, "armed", None) is None
+    with rec.span("round", run=1, round=1):     # pending on leaving
+        assert rec.read_device() == 2
+
+
+def test_the_export_puts_device_spans_on_a_row_of_their_own(tmp_path):
+    rec = SpanRecorder()
+    run = rec.begin_run("solve")
+    rec.pend_device(_round_events())
+    with rec.span("round", run=run, round=1):
+        rec.read_device()
+    path = tmp_path / "spans.json"
+    assert rec.export_chrome(str(path), run) == 5
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e["ph"] == "X"]
+    rows = {e["name"]: e["tid"] for e in events}
+    assert rows["round"] == 0
+    assert {rows[n] for n in ("expand", "balance", "replay")} == {2}
+
+
 # -- the spans of the solve and the service ----------------------------------
 
 def _solve(mesh=None, metrics=False):
@@ -225,6 +344,13 @@ def test_every_solve_round_holds_its_phases(recorder_on, shards):
             assert top.start_ns <= s.start_ns <= s.end_ns <= top.end_ns
 
 
+@pytest.mark.parametrize("shards", [0, 2])
+def test_the_cpu_records_no_device_span(recorder_on, shards):
+    _solve(Mesh(["cpu"] * shards) if shards else None)
+    run = spans.run_spans("solve")
+    assert run and {s.clock for s in run} == {"host"}
+
+
 def _service(n_requests=5, on=True):
     (spans.enable if on else spans.disable)()
     svc = Solver(SolverConfig(lanes=16, steps_per_round=8, device="cpu")
@@ -250,6 +376,7 @@ def test_every_service_round_and_request_has_its_spans(recorder_on):
     rebuilds = [s for s in run if s.name == "rebuild"]
     assert rebuilds and all(s.parent in admits for s in rebuilds)
     assert len(results) == 5
+    assert {s.clock for s in run} == {"host"}
     for rid, ticket in svc.tickets.items():
         mine = [s for s in run if s.rid == rid]
         (whole,) = [s for s in mine if s.name == "request"]
@@ -322,5 +449,7 @@ def test_the_span_code_is_in_the_round_loops_lint_scope():
                         rules=["trace-safety"])
     assert result.findings == []
     for name in ("_Opened.__enter__", "_Opened.__exit__",
-                 "SpanRecorder._push", "SpanRecorder._pop", "span"):
+                 "SpanRecorder._push", "SpanRecorder._pop", "span",
+                 "SpanRecorder._event", "SpanRecorder._close_device",
+                 "pend_device"):
         assert f"repro_torch.obs.spans:{name}" in result.scanned
