@@ -1109,22 +1109,29 @@ def check_same_lanes(a, b, what):
 def phase_service(report):
     """The main path of the slice: ``Solver.serve`` at full width, drained,
     with the launch counts set to 0 just before and read just after."""
+    from repro_torch.core import checkpoint as ckpt
     from repro_torch.kernels import bitset_ops
     cfg = SERVICE
     svc = new_service(DEV, cfg["lanes"], cfg["steps"], cfg["max_n"],
                       cfg["slots"])
     submit_all(svc, [(f, s, {}) for f, s, _ in SERVICE_MIX])
     bitset_ops.reset_launches()
+    ckpt.reset_rebuilds()
     ms, results = sync_ms(svc.drain)
     launches = dict(bitset_ops.LAUNCHES)
+    rebuilds = dict(ckpt.REBUILDS)
     check_optima(results, "service")
     il = svc.lanes.idx.shape[1]
     per_round = cfg["steps"] + il          # expand steps + steal replay
     extra = launches["stacked_count_stats"] - svc.rounds * per_round
-    check(extra >= 0 and extra % il == 0,
+    # Every admission seeds roots (no pending pool): its rebuild replays
+    # the seeded lanes alone, in 0 passes, and launches nothing.
+    check(extra == rebuilds["passes"] == 0
+          and rebuilds["lanes"] == len(SERVICE_MIX),
           f"service: {launches['stacked_count_stats']} stacked_count_stats "
           f"launches in {svc.rounds} rounds (want {per_round} per round "
-          f"plus {il} per admission rebuild)")
+          f"and none per admission rebuild); rebuilds {rebuilds} (want 0 "
+          f"passes over {len(SERVICE_MIX)} seeded lanes)")
     check(launches["count_stats"] == 0,
           "service: the single-table count_stats ran on the service path")
     nodes = int(svc.lanes.nodes.sum())
@@ -1134,7 +1141,9 @@ def phase_service(report):
           f"instances/s={len(SERVICE_MIX) / ms * 1e3:.3f}, nodes={nodes} "
           f"nodes/s={nodes / ms * 1e3:.0f}, stacked_count_stats "
           f"launches={launches['stacked_count_stats']} ({per_round} per "
-          f"round, {extra // il} admission rebuilds of {il})", flush=True)
+          f"round); {rebuilds['calls']} admission rebuilds of "
+          f"{rebuilds['lanes']} lanes in {rebuilds['passes']} passes",
+          flush=True)
     for rid, (family, spec, _) in enumerate(SERVICE_MIX):
         res = results[rid]
         print(f"  rid={rid} {family}[{spec}] optimum={res.optimum} rounds="
@@ -1143,7 +1152,7 @@ def phase_service(report):
         lanes=cfg["lanes"], slots=cfg["slots"], max_n=cfg["max_n"],
         steps_per_round=cfg["steps"], rounds=svc.rounds, wall_ms=ms,
         requests=len(SERVICE_MIX), nodes=nodes, launches=launches,
-        rebuilds=extra // il,
+        rebuilds=rebuilds,
         results={rid: [r.optimum, r.admitted_round, r.retired_round]
                  for rid, r in results.items()})
     report["launches"]["stacked_count_stats"] += launches[

@@ -216,17 +216,48 @@ def repartition(problem: BinaryProblem, lanes: Lanes, num_lanes: int
                     NO_INSTANCE, stats)
 
 
-def rebuild_stacks(problem: BinaryProblem, lanes: Lanes) -> Lanes:
+#: ``rebuild_stacks`` calls since the last ``reset_rebuilds()``: the
+#: calls, the lanes they replayed (a whole-pool replay counts every lane)
+#: and the batched ``apply`` passes they ran.
+REBUILDS: Dict[str, int] = dict.fromkeys(("calls", "lanes", "passes"), 0)
+
+
+def reset_rebuilds() -> None:
+    for name in REBUILDS:
+        REBUILDS[name] = 0
+
+
+def rebuild_stacks(problem: BinaryProblem, lanes: Lanes,
+                   touched: Optional[np.ndarray] = None,
+                   passes: Optional[int] = None) -> Lanes:
     """CONVERTINDEX for every active lane: replay the path bits
     ``idx[0..depth-1]`` (delegation marks flattened to the branch taken,
     LEFT) from the root of the lane's own instance.  One batched replay
     over all lanes: IDX_LEN ``apply`` calls, one kernel launch each on the
-    card."""
+    card.
+
+    ``touched`` (bool[W] on the host) keeps the replay's rows for those
+    lanes only, and ``passes`` bounds it by the deepest ``depth`` among
+    them, which the caller has just written: a lane seeded at its root
+    needs 0 passes.  Every other lane keeps its stack, which for an active
+    lane is what its own replay gives (DESIGN.md §4).  With no lane
+    touched nothing runs."""
+    if touched is None:
+        keep, count = lanes.active, lanes.idx.shape[0]
+        passes = lanes.idx.shape[1]
+    else:
+        count = int(touched.sum())
+        if count == 0:
+            return lanes
+        keep = torch.from_numpy(touched).to(lanes.idx.device)
+    REBUILDS["calls"] += 1
+    REBUILDS["lanes"] += count
+    REBUILDS["passes"] += passes
     bits = torch.where(lanes.idx < 0, 0, lanes.idx).to(torch.int8)
     k = lanes.best.shape[0]
     safe_inst = lanes.inst.clamp(0, k - 1)
-    stacks = replay_path(problem, bits, lanes.depth, lanes.stack, safe_inst)
-    keep = lanes.active
+    stacks = replay_path(problem, bits, lanes.depth, lanes.stack, safe_inst,
+                         passes)
     stack = tree_map(
         lambda new, old: torch.where(
             keep.reshape((-1,) + (1,) * (old.dim() - 1)), new, old),

@@ -19,7 +19,7 @@ whole round runs without a host sync.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -230,7 +230,7 @@ def make_expand(problem: BinaryProblem, num_steps: int,
 
 def replay_path(problem: BinaryProblem, bits: torch.Tensor,
                 path_depth: torch.Tensor, stack: PyTree,
-                inst: torch.Tensor) -> PyTree:
+                inst: torch.Tensor, passes: Optional[int] = None) -> PyTree:
     """CONVERTINDEX for every lane: rebuild each lane's state stack for its
     task index (paper §IV-A).
 
@@ -238,15 +238,22 @@ def replay_path(problem: BinaryProblem, bits: torch.Tensor,
     FIXINDEX), ``path_depth`` int32[W], ``stack`` leaves [W, STACK_LEN,
     ...], ``inst`` int32[W].  Row 0 becomes the lane's instance root and
     rows 1..path_depth the states along the path; deeper rows keep their
-    old contents.  Costs IDX_LEN batched ``apply`` calls — one kernel
-    launch each on the card.
+    old contents.  Costs ``passes`` (default IDX_LEN) batched ``apply``
+    calls — one kernel launch each on the card.  A caller that knows every
+    ``path_depth`` it keeps is at most ``passes`` gets the same rows for
+    those lanes: rows past ``passes`` are copied from ``stack``.
     """
+    passes = bits.shape[1] if passes is None else passes
     state = root_of(problem, inst)
     rows = [state]
-    for j in range(bits.shape[1]):
+    for j in range(passes):
         bit = bits[:, j].to(torch.int32).clamp(0, 1)
         take = j < path_depth
         state = tree_select(take, problem.apply(state, bit), state)
         rows.append(tree_select(
             take, state, tree_map(lambda s: s[:, j + 1], stack)))
-    return tree_map(lambda *r: torch.stack(r, dim=1), *rows)
+    out = tree_map(lambda *r: torch.stack(r, dim=1), *rows)
+    if passes < bits.shape[1]:
+        out = tree_map(lambda o, s: torch.cat([o, s[:, passes + 1:]], dim=1),
+                       out, stack)
+    return out

@@ -236,16 +236,26 @@ class SolverService:
         self.lanes = (self.lanes._replace(**fields) if self.mesh is None
                       else replace_sharded(self.lanes, self.mesh, **fields))
 
-    def _rebuild_stacks(self) -> None:
-        """CONVERTINDEX replay of every active lane's stack, per shard."""
+    def _rebuild_stacks(self, touched: np.ndarray,
+                        depth: np.ndarray) -> None:
+        """CONVERTINDEX replay of the ``touched`` lanes' stacks (bool[W],
+        gathered layout), per shard, in as many passes as the deepest of
+        the shard's touched lanes (``depth``: the host's copy) needs."""
+        def rebuild(problem, lanes, cut):
+            mine = touched[cut]
+            return ckpt.rebuild_stacks(problem, lanes, mine,
+                                       int(depth[cut][mine].max(initial=0)))
+
         with spans.span("rebuild"):
             if self.mesh is None:
-                self.lanes = ckpt.rebuild_stacks(self.problem, self.lanes)
+                self.lanes = rebuild(self.problem, self.lanes, slice(None))
             else:
+                w = self.lanes_per_device
                 self.lanes = ShardedLanes([
-                    ckpt.rebuild_stacks(self._problems[dev], shard)
-                    for dev, shard in zip(self.mesh.devices,
-                                          self.lanes.shards)])
+                    rebuild(self._problems[dev], shard,
+                            slice(r * w, (r + 1) * w))
+                    for r, (dev, shard) in enumerate(zip(
+                        self.mesh.devices, self.lanes.shards))])
 
     def metrics(self):
         """``repro_torch.obs.MetricsSnapshot`` of this service's registry,
@@ -404,7 +414,7 @@ class SolverService:
 
         h = self._host_lane_fields()
         idle = [i for i in range(self.num_lanes) if not h["active"][i]]
-        changed = False
+        touched = np.zeros(self.num_lanes, bool)   # lanes given a new task
 
         # Pending-pool drain first: restored tasks are already-owned
         # subtrees and take idle lanes before fresh roots.
@@ -418,7 +428,7 @@ class SolverService:
             h["depth"][lane], h["base"][lane] = task.depth, task.base
             h["inst"][lane], h["active"][lane] = task.inst, True
             h["t_s"][lane] += 1
-            changed = True
+            touched[lane] = True
 
         # Admission: one free slot + one idle lane per popped request.
         free = [s for s in range(self.spec.k) if self.slot_rid[s] < 0]
@@ -455,7 +465,7 @@ class SolverService:
             h["depth"][lane] = h["base"][lane] = 0
             h["inst"][lane], h["active"][lane] = slot, True
             h["t_s"][lane] += 1
-            changed = True
+            touched[lane] = True
             self._emit("admit", rid=req.rid)
             if self._collector is not None:
                 self._collector.lifecycle(
@@ -473,6 +483,7 @@ class SolverService:
                 h["inst"][lane] = want   # no stack impact: lane stays idle
                 retargeted = True
 
+        changed = bool(touched.any())
         if not changed and not retargeted:
             self._placement_clean = len(live) <= 1
             return False
@@ -481,10 +492,11 @@ class SolverService:
             fields["best_payload"] = tree_map(self._to_dev, payload_host)
         self._replace_lanes(**fields)
         if changed:
-            # CONVERTINDEX replay rebuilds the stacks of seeded/installed
-            # lanes (replaying untouched active lanes is a no-op by the
-            # determinism contract).
-            self._rebuild_stacks()
+            # CONVERTINDEX replay rebuilds the stacks of the seeded and
+            # installed lanes alone: replaying an untouched active lane
+            # gives back its stack (the determinism contract), and a lane
+            # seeded at its root needs no pass.
+            self._rebuild_stacks(touched, h["depth"])
         self._placement_clean = len(live) <= 1
         return changed
 

@@ -693,3 +693,31 @@ def test_graphed_rounds_record_one_device_span_per_phase(family):
         - _syncs(lambda: _solve_rounds(family, spec, lanes, 2, state))
         for state in (True, False)}
     assert per_round == {True: 1, False: 1}
+
+
+
+@pytest.mark.gpu
+def test_admission_rebuild_equals_the_whole_pool_replay_at_the_cells_shape(
+        monkeypatch):
+    """``vc-service-closed``'s shape: 4096 lanes, 32 slots, ``max_n`` 64,
+    80 requests of G(n, 0.15) with n in 40..64, so admissions go on as
+    slots free.  A resize to 48 lanes at round 6 parks tasks in the
+    pending pool and one back to 4096 at round 8 lets later admissions
+    install them below their roots.  After every admission the lanes
+    equal a whole-pool rebuild of the same input, bitwise, in as many
+    passes as the deepest touched lane (0 for roots alone); every optimum
+    is the serial oracle's."""
+    need_card()
+    from test_torch_targeted_rebuild import checked_rebuilds, drive
+    calls = checked_rebuilds(monkeypatch)
+    rng = np.random.RandomState(29)
+    mix = [("vc", f"gnp:{n}:15:{rid}")
+           for rid, n in enumerate(rng.randint(40, 65, size=80))]
+    svc = Solver(SolverConfig(lanes=4096, steps_per_round=64,
+                              device="cuda")).serve(max_n=64, slots=32)
+    drive(svc, mix, resize_at={6: dict(num_lanes=48),
+                               8: dict(num_lanes=4096)})
+    assert svc.rounds >= 30
+    assert len(calls) >= 15             # one a round that admits
+    assert all(c["passes"] == c["deepest"] for c in calls)
+    assert any(c["deepest"] > 0 for c in calls)
