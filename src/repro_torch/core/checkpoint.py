@@ -121,6 +121,26 @@ def _unflatten(like: Any, leaves: List[torch.Tensor]) -> Any:
     return tree_map(lambda _: next(it), like)
 
 
+def place_tasks(fields: Dict[str, np.ndarray], lanes,
+                tasks: List[PendingTask]) -> np.ndarray:
+    """Write each task's image onto its lane (``lanes[i]`` takes
+    ``tasks[i]``) in the host arrays ``fields``: the index row, UNVISITED
+    past the task's prefix, ``depth``, ``base``, ``inst`` and
+    ``active``.  Returns the lanes written, bool[W], for
+    :func:`rebuild_stacks`.  A root is a task with an empty index at depth
+    0."""
+    idx = fields["idx"]
+    touched = np.zeros(idx.shape[0], bool)
+    for lane, task in zip(lanes, tasks):
+        width = min(idx.shape[1], task.idx.shape[0])
+        idx[lane] = int(UNVISITED)
+        idx[lane, :width] = task.idx[:width]
+        fields["depth"][lane], fields["base"][lane] = task.depth, task.base
+        fields["inst"][lane], fields["active"][lane] = task.inst, True
+        touched[lane] = True
+    return touched
+
+
 def _install(problem: BinaryProblem, new: Lanes, idx: np.ndarray,
              depth: np.ndarray, base: np.ndarray, inst: np.ndarray,
              active: np.ndarray, idle_inst: int,
@@ -129,38 +149,24 @@ def _install(problem: BinaryProblem, new: Lanes, idx: np.ndarray,
     replay their stacks, carry the aggregate counters on lane 0 and
     return the surplus as the pending pool."""
     num_lanes, il = new.idx.shape
-    dev = new.idx.device
-    live = [k for k in range(idx.shape[0]) if active[k]]
-    installed, pending = live[:num_lanes], live[num_lanes:]
-
-    new_idx = np.full((num_lanes, il), int(UNVISITED), np.int8)
-    new_depth = np.zeros((num_lanes,), np.int32)
-    new_base = np.zeros((num_lanes,), np.int32)
-    new_inst = np.full((num_lanes,), idle_inst, np.int32)
-    new_active = np.zeros((num_lanes,), bool)
-    for j, k in enumerate(installed):
-        w = min(il, idx.shape[1])
-        new_idx[j, :w] = idx[k, :w]
-        new_depth[j], new_base[j] = depth[k], base[k]
-        new_inst[j], new_active[j] = inst[k], True
-
-    def dev_t(a):
-        return torch.from_numpy(a).to(dev)
-
-    new = new._replace(idx=dev_t(new_idx), depth=dev_t(new_depth),
-                       base=dev_t(new_base), inst=dev_t(new_inst),
-                       active=dev_t(new_active))
-    new = rebuild_stacks(problem, new)
+    tasks = [PendingTask(idx[k].copy(), int(depth[k]), int(base[k]),
+                         int(inst[k]))
+             for k in range(idx.shape[0]) if active[k]]
+    fields = {"idx": np.full((num_lanes, il), int(UNVISITED), np.int8),
+              "depth": np.zeros((num_lanes,), np.int32),
+              "base": np.zeros((num_lanes,), np.int32),
+              "inst": np.full((num_lanes,), idle_inst, np.int32),
+              "active": np.zeros((num_lanes,), bool)}
+    touched = place_tasks(fields, range(num_lanes), tasks)
+    new = new._replace(**{f: torch.from_numpy(a).to(new.idx.device)
+                          for f, a in fields.items()})
+    new = rebuild_stacks(problem, new, touched, fields["depth"])
     carried = {}
     for key in _STATS:
         field = getattr(new, key).clone()
         field[0] += stats.get(key, 0)
         carried[key] = field
-    new = new._replace(**carried)
-    pool = [PendingTask(idx[k].copy(), int(depth[k]), int(base[k]),
-                        int(inst[k]))
-            for k in pending]
-    return new, pool
+    return new._replace(**carried), tasks[num_lanes:]
 
 
 def restore(path: str, problem: BinaryProblem, num_lanes: int
@@ -217,8 +223,8 @@ def repartition(problem: BinaryProblem, lanes: Lanes, num_lanes: int
 
 
 #: ``rebuild_stacks`` calls since the last ``reset_rebuilds()``: the
-#: calls, the lanes they replayed (a whole-pool replay counts every lane)
-#: and the batched ``apply`` passes they ran.
+#: calls, the lanes they replayed (the touched lanes) and the batched
+#: ``apply`` passes they ran.
 REBUILDS: Dict[str, int] = dict.fromkeys(("calls", "lanes", "passes"), 0)
 
 
@@ -227,32 +233,27 @@ def reset_rebuilds() -> None:
         REBUILDS[name] = 0
 
 
-def rebuild_stacks(problem: BinaryProblem, lanes: Lanes,
-                   touched: Optional[np.ndarray] = None,
-                   passes: Optional[int] = None) -> Lanes:
-    """CONVERTINDEX for every active lane: replay the path bits
-    ``idx[0..depth-1]`` (delegation marks flattened to the branch taken,
-    LEFT) from the root of the lane's own instance.  One batched replay
-    over all lanes: IDX_LEN ``apply`` calls, one kernel launch each on the
-    card.
+def rebuild_stacks(problem: BinaryProblem, lanes: Lanes, touched: np.ndarray,
+                   depth: np.ndarray) -> Lanes:
+    """CONVERTINDEX for the lanes the caller just wrote: replay the path
+    bits ``idx[0..depth-1]`` (delegation marks flattened to the branch
+    taken, LEFT) from the root of each lane's own instance.  One batched
+    replay, one kernel launch a pass on the card.
 
-    ``touched`` (bool[W] on the host) keeps the replay's rows for those
-    lanes only, and ``passes`` bounds it by the deepest ``depth`` among
-    them, which the caller has just written: a lane seeded at its root
-    needs 0 passes.  Every other lane keeps its stack, which for an active
-    lane is what its own replay gives (DESIGN.md §4).  With no lane
-    touched nothing runs."""
-    if touched is None:
-        keep, count = lanes.active, lanes.idx.shape[0]
-        passes = lanes.idx.shape[1]
-    else:
-        count = int(touched.sum())
-        if count == 0:
-            return lanes
-        keep = torch.from_numpy(touched).to(lanes.idx.device)
+    ``touched`` (bool[W] on the host) names the written lanes and
+    ``depth`` is the caller's host copy of ``depth``: the replay runs as
+    many passes as the deepest touched lane needs (0 for roots alone) and
+    keeps its rows for the touched lanes only.  Every other lane keeps its
+    stack, which for an active lane is what its own replay gives
+    (DESIGN.md §4).  With no lane touched nothing runs."""
+    count = int(touched.sum())
+    if count == 0:
+        return lanes
+    passes = int(depth[touched].max())
     REBUILDS["calls"] += 1
     REBUILDS["lanes"] += count
     REBUILDS["passes"] += passes
+    keep = torch.from_numpy(touched).to(lanes.idx.device)
     bits = torch.where(lanes.idx < 0, 0, lanes.idx).to(torch.int8)
     k = lanes.best.shape[0]
     safe_inst = lanes.inst.clamp(0, k - 1)
@@ -269,33 +270,17 @@ def install_pending(problem: BinaryProblem, lanes: Lanes,
                     pool: List[PendingTask]
                     ) -> Tuple[Lanes, List[PendingTask]]:
     """Feed pending-pool entries to idle lanes (drivers, round
-    boundaries)."""
+    boundaries); each counts one receipt in ``t_s``."""
     if not pool:
         return lanes, pool
-    active = _host(lanes.active)
-    idle = [i for i in range(active.shape[0]) if not active[i]]
-    n = min(len(idle), len(pool))
-    if n == 0:
+    fields = {f: _host(getattr(lanes, f)).copy()
+              for f in ("idx", "depth", "base", "inst", "active", "t_s")}
+    idle = np.flatnonzero(~fields["active"])[:len(pool)]
+    if idle.size == 0:
         return lanes, pool
-    il = lanes.idx.shape[1]
-    idxs = _host(lanes.idx).copy()
-    depth = _host(lanes.depth).copy()
-    base = _host(lanes.base).copy()
-    inst = _host(lanes.inst).copy()
-    act = active.copy()
-    t_s = _host(lanes.t_s).copy()
-    for lane, task in zip(idle[:n], pool[:n]):
-        w = min(il, task.idx.shape[0])
-        idxs[lane, :w] = task.idx[:w]
-        depth[lane], base[lane], act[lane] = task.depth, task.base, True
-        inst[lane] = task.inst
-        t_s[lane] += 1
-    dev = lanes.idx.device
-
-    def dev_t(a):
-        return torch.from_numpy(a).to(dev)
-
-    lanes = lanes._replace(
-        idx=dev_t(idxs), depth=dev_t(depth), base=dev_t(base),
-        inst=dev_t(inst), active=dev_t(act), t_s=dev_t(t_s))
-    return rebuild_stacks(problem, lanes), pool[n:]
+    touched = place_tasks(fields, idle, pool)
+    fields["t_s"][touched] += 1
+    lanes = lanes._replace(**{f: torch.from_numpy(a).to(lanes.idx.device)
+                              for f, a in fields.items()})
+    return (rebuild_stacks(problem, lanes, touched, fields["depth"]),
+            pool[idle.size:])

@@ -393,7 +393,7 @@ def problems_per_shard(problem, mesh: Mesh) -> List[BinaryProblem]:
     return [problem[dev] for dev in mesh.devices]
 
 
-def make_round(problem, steps_per_round: int, fused_steps: int = 1, *,
+def make_round(problem, steps_per_round: int, *,
                mesh: Optional[Mesh] = None, max_ship: int = 16,
                calls: Optional[int] = None) -> Callable:
     """Build the round body.  With no mesh (or a mesh of one shard) it
@@ -418,19 +418,18 @@ def make_round(problem, steps_per_round: int, fused_steps: int = 1, *,
     gets too few to pay for its capture (``round_graph.MIN_CALLS``)."""
     if mesh is not None and mesh.size > 1:
         return round_graph.eager(
-            make_distributed_round(problem, mesh, steps_per_round, max_ship,
-                                   fused_steps), "mesh")
+            make_distributed_round(problem, mesh, steps_per_round, max_ship),
+            "mesh")
     if mesh is not None:
         problem = problems_per_shard(problem, mesh)[0]
-        single = make_round(problem, steps_per_round, fused_steps,
-                            calls=calls)
+        single = make_round(problem, steps_per_round, calls=calls)
 
         def one_shard(lanes: ShardedLanes):
             out, open_work = single(lanes.shards[0])
             return ShardedLanes([out]), open_work
 
         return one_shard
-    expand = make_expand(problem, steps_per_round, fused_steps)
+    expand = make_expand(problem, steps_per_round)
 
     def round_fn(lanes: Lanes) -> Tuple[Lanes, torch.Tensor]:
         lanes = expand(lanes)
@@ -441,7 +440,7 @@ def make_round(problem, steps_per_round: int, fused_steps: int = 1, *,
 
 
 def make_distributed_round(problem, mesh: Mesh, steps_per_round: int,
-                           max_ship: int = 16, fused_steps: int = 1
+                           max_ship: int = 16
                            ) -> Callable[[ShardedLanes],
                                          Tuple[ShardedLanes, torch.Tensor]]:
     """The round over every shard of ``mesh``: each shard expands and
@@ -454,7 +453,7 @@ def make_distributed_round(problem, mesh: Mesh, steps_per_round: int,
     expands: Dict[torch.device, Callable] = {}
     for dev, p in zip(mesh.devices, problems):
         if dev not in expands:
-            expands[dev] = make_expand(p, steps_per_round, fused_steps)
+            expands[dev] = make_expand(p, steps_per_round)
 
     def round_fn(lanes: ShardedLanes) -> Tuple[ShardedLanes, torch.Tensor]:
         # The intra-device steal's replay waits for the cross-device one:

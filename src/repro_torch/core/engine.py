@@ -202,8 +202,7 @@ def make_step(problem: BinaryProblem):
     return step
 
 
-def make_expand(problem: BinaryProblem, num_steps: int,
-                fused_steps: int = 1):
+def make_expand(problem: BinaryProblem, num_steps: int):
     """Run ``num_steps`` engine steps: the compute phase between steal
     rounds.
 
@@ -211,11 +210,8 @@ def make_expand(problem: BinaryProblem, num_steps: int,
     Here every step runs, predicated: with no lane active a step changes
     no field but ``steps``, so adding ``any(active)`` to ``steps`` on the
     device keeps every field bitwise equal to the reference with no host
-    sync inside the round.  ``fused_steps`` only groups dispatches in the
-    reference; it is validated and the tree is the same for every value.
+    sync inside the round.
     """
-    if fused_steps < 1:
-        raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
     step = make_step(problem)
 
     def expand(lanes: Lanes) -> Lanes:

@@ -81,6 +81,9 @@ __all__ = [
 #: Lane fields the host edits at admission (``_host_lane_fields``).
 _HOST_FIELDS = ("idx", "depth", "base", "inst", "active", "t_s", "best")
 
+#: The index of a root task: no branch taken yet.
+_NO_PATH = np.zeros((0,), np.int8)
+
 
 class _ResultMap(dict):
     """Results keyed by int rid; lookups normalise Tickets through
@@ -153,7 +156,6 @@ class SolverService:
         self.spec = StackedSpec(n=max_n, k=slots)
         self.device = resolve_device(device)
         self.steps_per_round = steps_per_round
-        self.fused_steps = fused_steps
         self.max_ship = max_ship              # cross-device ship cap / round
         self.on_event = on_event
         self.autoscale = autoscale            # elasticity policy, or None
@@ -220,8 +222,7 @@ class SolverService:
         self.problem = problems[self._home]       # where gathered lanes live
         self._problems = problems
         self._round = make_round(self.problem if mesh is None else problems,
-                                 self.steps_per_round,
-                                 fused_steps=self.fused_steps, mesh=mesh,
+                                 self.steps_per_round, mesh=mesh,
                                  max_ship=self.max_ship)
 
     def _set_lanes(self, lanes: Lanes) -> None:
@@ -239,21 +240,17 @@ class SolverService:
     def _rebuild_stacks(self, touched: np.ndarray,
                         depth: np.ndarray) -> None:
         """CONVERTINDEX replay of the ``touched`` lanes' stacks (bool[W],
-        gathered layout), per shard, in as many passes as the deepest of
-        the shard's touched lanes (``depth``: the host's copy) needs."""
-        def rebuild(problem, lanes, cut):
-            mine = touched[cut]
-            return ckpt.rebuild_stacks(problem, lanes, mine,
-                                       int(depth[cut][mine].max(initial=0)))
-
+        gathered layout, with ``depth`` the host's copy), per shard."""
         with spans.span("rebuild"):
             if self.mesh is None:
-                self.lanes = rebuild(self.problem, self.lanes, slice(None))
+                self.lanes = ckpt.rebuild_stacks(self.problem, self.lanes,
+                                                 touched, depth)
             else:
                 w = self.lanes_per_device
                 self.lanes = ShardedLanes([
-                    rebuild(self._problems[dev], shard,
-                            slice(r * w, (r + 1) * w))
+                    ckpt.rebuild_stacks(self._problems[dev], shard,
+                                        touched[r * w:(r + 1) * w],
+                                        depth[r * w:(r + 1) * w])
                     for r, (dev, shard) in enumerate(zip(
                         self.mesh.devices, self.lanes.shards))])
 
@@ -414,21 +411,13 @@ class SolverService:
 
         h = self._host_lane_fields()
         idle = [i for i in range(self.num_lanes) if not h["active"][i]]
-        touched = np.zeros(self.num_lanes, bool)   # lanes given a new task
 
         # Pending-pool drain first: restored tasks are already-owned
-        # subtrees and take idle lanes before fresh roots.
-        while self.pool and idle:
-            task = self.pool.pop(0)
-            lane = idle.pop(0)
-            il = h["idx"].shape[1]
-            width = min(il, task.idx.shape[0])
-            h["idx"][lane, :] = int(UNVISITED)
-            h["idx"][lane, :width] = task.idx[:width]
-            h["depth"][lane], h["base"][lane] = task.depth, task.base
-            h["inst"][lane], h["active"][lane] = task.inst, True
-            h["t_s"][lane] += 1
-            touched[lane] = True
+        # subtrees and take idle lanes before fresh roots.  Both are
+        # placed in one ``place_tasks`` call after the admission loop.
+        placed = min(len(self.pool), len(idle))
+        lanes, tasks = idle[:placed], self.pool[:placed]
+        del self.pool[:placed], idle[:placed]
 
         # Admission: one free slot + one idle lane per popped request.
         free = [s for s in range(self.spec.k) if self.slot_rid[s] < 0]
@@ -461,17 +450,17 @@ class SolverService:
                                         self.lanes.best_payload)
             payload_host = tree_map(lambda p: _zero_row(p, slot),
                                     payload_host)
-            h["idx"][lane, :] = int(UNVISITED)
-            h["depth"][lane] = h["base"][lane] = 0
-            h["inst"][lane], h["active"][lane] = slot, True
-            h["t_s"][lane] += 1
-            touched[lane] = True
+            lanes.append(lane)
+            tasks.append(ckpt.PendingTask(_NO_PATH, 0, 0, slot))
             self._emit("admit", rid=req.rid)
             if self._collector is not None:
                 self._collector.lifecycle(
                     "admit", round_no=self.rounds, rid=req.rid, slot=slot,
                     waited=(ticket.wait_rounds if ticket is not None
                             else None))
+
+        touched = ckpt.place_tasks(h, lanes, tasks)
+        h["t_s"][touched] += 1
 
         # Retarget the remaining idle lanes round-robin over live slots so
         # the next steal round can feed them (instance-scoped thieves).

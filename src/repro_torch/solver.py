@@ -62,8 +62,8 @@ class SolverConfig:
       max_rounds: hard round budget (bootstrap rounds included).
       bootstrap_rounds / bootstrap_steps: short ramp-up rounds that flood
         initial tasks.
-      fused_steps: validated for parity with the reference; the tree is
-        the same for every value.
+      fused_steps: validated for parity with the reference and recorded
+        in the trace; the tree is the same for every value.
       device: where the lanes and tables live ("cuda" or "cpu").
       checkpoint_every / checkpoint_path: periodic checkpointing policy of
         :meth:`Solver.solve` (``checkpoint_every > 0`` requires a path).
@@ -286,11 +286,9 @@ class Solver:
             problem = problems_per_shard(bound, mesh)[0]
             total_lanes = cfg.lanes * mesh.size
         bootstrap_rounds = cfg.bootstrap_rounds
-        round_fn = make_round(bound, cfg.steps_per_round,
-                              fused_steps=cfg.fused_steps, mesh=mesh,
+        round_fn = make_round(bound, cfg.steps_per_round, mesh=mesh,
                               max_ship=cfg.max_ship)
-        boot_fn = (make_round(bound, cfg.bootstrap_steps,
-                              fused_steps=cfg.fused_steps, mesh=mesh,
+        boot_fn = (make_round(bound, cfg.bootstrap_steps, mesh=mesh,
                               max_ship=cfg.max_ship, calls=bootstrap_rounds)
                    if bootstrap_rounds else round_fn)
 

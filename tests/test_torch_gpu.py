@@ -703,10 +703,11 @@ def test_admission_rebuild_equals_the_whole_pool_replay_at_the_cells_shape(
     80 requests of G(n, 0.15) with n in 40..64, so admissions go on as
     slots free.  A resize to 48 lanes at round 6 parks tasks in the
     pending pool and one back to 4096 at round 8 lets later admissions
-    install them below their roots.  After every admission the lanes
-    equal a whole-pool rebuild of the same input, bitwise, in as many
-    passes as the deepest touched lane (0 for roots alone); every optimum
-    is the serial oracle's."""
+    install them below their roots.  After every rebuild, the resizes'
+    and the admissions', the lanes equal a whole-pool rebuild of the same
+    input (``whole_pool_rebuild``), bitwise, in as many passes as the
+    deepest touched lane (0 for roots alone); every optimum is the serial
+    oracle's."""
     need_card()
     from test_torch_targeted_rebuild import checked_rebuilds, drive
     calls = checked_rebuilds(monkeypatch)

@@ -4,9 +4,9 @@ reference's ``repro.obs``.
 (a) the metrics registry and the trace schema, the unit cases of
 ``tests/test_obs.py``; (b) record for record, the port's traces equal the
 reference's (all fields but ``meta.backend`` and ``meta.config``) on vc,
-ds and ss solves, a solve resumed from a checkpoint and a K=8 service
-drain, with equal metrics snapshots, and ``tools/trace_report.py`` reads
-each port trace unchanged; (c) telemetry is observation only: the same
+ds and ss solves, a vc solve at ``fused_steps=3``, a solve resumed from a
+checkpoint and a K=8 service drain, with equal metrics snapshots, and
+``tools/trace_report.py`` reads each port trace unchanged; (c) telemetry is observation only: the same
 ``Lanes``, ``SolveStats`` and service results with it on and off.
 """
 
@@ -217,16 +217,23 @@ def traced_pair(tmp_path, family, spec, **cfg):
     return out
 
 
-@pytest.mark.parametrize("family,spec", [VC, ("ds", "gnp:14:30:2"),
-                                         ("ss", "ss:14:5")])
-def test_solve_trace_equals_reference(family, spec, tmp_path):
+@pytest.mark.parametrize("family,spec,fused", [
+    pytest.param(*VC, 1, id="vc-gnp:14:30:5"),
+    pytest.param("ds", "gnp:14:30:2", 1, id="ds-gnp:14:30:2"),
+    pytest.param("ss", "ss:14:5", 1, id="ss-ss:14:5"),
+    pytest.param(*VC, 3, id="vc-gnp:14:30:5-fused3")])
+def test_solve_trace_equals_reference(family, spec, fused, tmp_path):
+    """The port's stats, trace records and metrics equal the reference's;
+    at ``fused_steps=3`` the records' dispatch counts are the reference's
+    grouped ones, the only place the port reads it."""
     (t_solver, t_res, t_path), (j_solver, j_res, j_path) = traced_pair(
-        tmp_path, family, spec, **BASE)
+        tmp_path, family, spec, **BASE, fused_steps=fused)
     assert t_res.stats == j_res.stats
     got = records(t_path)
     assert got == records(j_path)
     meta = json.loads(open(t_path).readline())
     assert meta["backend"] == "cpu" and meta["mode"] == "solve"
+    assert meta["fused_steps"] == fused
     assert t_solver.metrics().to_dict() == j_solver.metrics().to_dict()
     summary = [r for r in got if r["t"] == "summary"][-1]
     assert summary["nodes"] == sum(summary["lane_nodes"]) == t_res.stats.nodes
