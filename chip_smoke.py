@@ -123,9 +123,10 @@ Phases (any failure raises and exits non-zero):
      no error; the round functions of cell60 (4096 lanes, from phase 4's
      lanes), the service (1024 lanes, 4 slots, phase 7's mix), the mesh
      (4 x 1024 on ``cuda:0``, from phase 20's lanes) and subset sum run
-     under ``torch.cuda.set_sync_debug_mode("error")`` (a sync inside
-     raises; a planted one must), their lanes bitwise those of the same
-     rounds unaudited; whole rounds of ``Solver.solve`` counted under
+     under ``torch.cuda.set_sync_debug_mode("warn")``, each round making
+     exactly its one readback (a planted extra sync must be caught),
+     their lanes bitwise those of the same rounds unaudited; whole
+     rounds of ``Solver.solve`` counted under
      ``"warn"`` must show ``SYNCS_PER_ROUND`` (1 bare, 2 traced, 1 on
      the mesh);
  26. LM serving: zamba2-2.7b at full width and depth (bf16, 2.7 B
@@ -335,18 +336,20 @@ TWIN_WAIT_S = 600
 #: ``MESH_LANES``), ``SYNC_ROUNDS`` rounds and one fewer, counted under
 #: ``set_sync_debug_mode("warn")``: the syncs of a round are the
 #: difference.  ``SYNCS_PER_ROUND`` is what each path must show, and the
-#: line that makes each sync: ``int(open_work.sum())`` of
-#: ``Solver.solve``'s ``run_round`` (``src/repro_torch/solver.py``) and,
-#: when traced, the collector's one ``flat.cpu()`` (``obs/collect.py``,
-#: ``_read``).
+#: line that makes each sync: the round's readback of its open work (and,
+#: on one device, the deepest task received) in
+#: ``src/repro_torch/core/round_graph.py::read_back`` and, when traced,
+#: the collector's one ``flat.cpu()`` (``obs/collect.py``, ``_read``).
 SYNC_SOLVE = DRAIN[0][:2]
 SYNC_ROUNDS = 2
 SYNCS_PER_ROUND = {"one device, bare": 1, "one device, traced": 2,
                    "mesh, bare": 1}
-#: The round functions run under ``set_sync_debug_mode("error")`` for
+#: The round functions run under ``set_sync_debug_mode("warn")`` for
 #: ``AUDIT_ROUNDS`` rounds: cell60's (from phase 4's lanes), the service's
-#: and subset sum's; the mesh's (from phase 20's lanes) for one.
+#: and subset sum's; the mesh's (from phase 20's lanes) for one.  Each
+#: round must make exactly ``ROUND_FN_SYNCS`` syncs: its readback.
 AUDIT_ROUNDS = 2
+ROUND_FN_SYNCS = 1
 #: The kernel library's phases.  The bitset pair at cell60's shape and a
 #: sweep; attention at the full width of two of the repo's model
 #: configurations (src/repro/configs: qwen2_7b, gemma2_27b) and a sweep
@@ -749,19 +752,21 @@ def phase_cell60(report, rounds_after_boot=2):
     split = []
     for r in (1, 2):
         before = bitset_ops.LAUNCHES["count_stats"]
+        passes = steal.REPLAYS["passes"]
         nodes0 = int(lanes.nodes.sum())
         with spans.span("round", run=run, round=r):
             lanes, open_work = round_fn(lanes)
-            with spans.span("readback"):
-                open_now = int(open_work.sum())
+            open_now = int(open_work.sum())
         launches = bitset_ops.LAUNCHES["count_stats"] - before
+        passes = steal.REPLAYS["passes"] - passes
         split.append(dict(span_ms(run, r), launches=launches,
                           nodes=int(lanes.nodes.sum()) - nodes0,
-                          open_work=open_now,
+                          open_work=open_now, replay_passes=passes,
                           active_after=int(lanes.active.sum())))
-        check(launches == 64 + il,
+        check(launches == 64 + passes,
               f"launches per round: {launches} (want 64 expand steps + "
-              f"{il} replay passes)")
+              f"the {passes} replay passes steal.REPLAYS counted, of "
+              f"IDX_LEN {il})")
         check({"expand", "balance", "replay", "readback"} <= set(split[-1]),
               f"round {r}: spans {sorted(split[-1])}")
     for r in split:
@@ -778,15 +783,18 @@ def phase_cell60(report, rounds_after_boot=2):
     # eager expand and balance alone.
     replays = round_graph.COUNTS["replays"]
     before = bitset_ops.LAUNCHES["count_stats"]
+    passes = steal.REPLAYS["passes"]
     busy = {"round": device_busy(lambda: round_fn(lanes))}
     busy["round"].pop("out")
     counted = bitset_ops.LAUNCHES["count_stats"] - before
+    passes = steal.REPLAYS["passes"] - passes
     ran = busy["round"]["kernel_launches"]["count_stats"]
     check(round_graph.COUNTS["replays"] == replays + 1,
           "cell60: the profiled round did not replay the graph")
-    check(counted == ran == 64 + il,
+    check(counted == ran == 64 + passes,
           f"cell60: a replayed round counted {counted} count_stats "
-          f"launches and the card ran {ran} (want 64 + {il})")
+          f"launches and the card ran {ran} (want 64 + the {passes} "
+          f"replay passes steal.REPLAYS counted)")
     print(f"phase 4: profiled graph replay: wall "
           f"{busy['round']['wall_ms']:.1f} ms, device busy "
           f"{busy['round']['device_ms']:.2f} ms (share "
@@ -1110,6 +1118,7 @@ def phase_service(report):
     """The main path of the slice: ``Solver.serve`` at full width, drained,
     with the launch counts set to 0 just before and read just after."""
     from repro_torch.core import checkpoint as ckpt
+    from repro_torch.core import steal
     from repro_torch.kernels import bitset_ops
     cfg = SERVICE
     svc = new_service(DEV, cfg["lanes"], cfg["steps"], cfg["max_n"],
@@ -1117,21 +1126,26 @@ def phase_service(report):
     submit_all(svc, [(f, s, {}) for f, s, _ in SERVICE_MIX])
     bitset_ops.reset_launches()
     ckpt.reset_rebuilds()
+    steal.reset_replays()
     ms, results = sync_ms(svc.drain)
     launches = dict(bitset_ops.LAUNCHES)
     rebuilds = dict(ckpt.REBUILDS)
+    replays = dict(steal.REPLAYS)
     check_optima(results, "service")
-    il = svc.lanes.idx.shape[1]
-    per_round = cfg["steps"] + il          # expand steps + steal replay
-    extra = launches["stacked_count_stats"] - svc.rounds * per_round
+    # Expand steps, then the passes of the replay chunks each round ran.
+    per_round = f"{cfg['steps']} + the replay passes"
+    extra = (launches["stacked_count_stats"] - svc.rounds * cfg["steps"]
+             - replays["passes"])
     # Every admission seeds roots (no pending pool): its rebuild replays
     # the seeded lanes alone, in 0 passes, and launches nothing.
     check(extra == rebuilds["passes"] == 0
+          and replays["rounds"] == svc.rounds
           and rebuilds["lanes"] == len(SERVICE_MIX),
           f"service: {launches['stacked_count_stats']} stacked_count_stats "
-          f"launches in {svc.rounds} rounds (want {per_round} per round "
-          f"and none per admission rebuild); rebuilds {rebuilds} (want 0 "
-          f"passes over {len(SERVICE_MIX)} seeded lanes)")
+          f"launches in {svc.rounds} rounds (want {per_round} per round, "
+          f"replays {replays}, and none per admission rebuild); rebuilds "
+          f"{rebuilds} (want 0 passes over {len(SERVICE_MIX)} seeded "
+          f"lanes)")
     check(launches["count_stats"] == 0,
           "service: the single-table count_stats ran on the service path")
     nodes = int(svc.lanes.nodes.sum())
@@ -1141,7 +1155,10 @@ def phase_service(report):
           f"instances/s={len(SERVICE_MIX) / ms * 1e3:.3f}, nodes={nodes} "
           f"nodes/s={nodes / ms * 1e3:.0f}, stacked_count_stats "
           f"launches={launches['stacked_count_stats']} ({per_round} per "
-          f"round); {rebuilds['calls']} admission rebuilds of "
+          f"round: {replays['passes']} passes in {replays['chunks']} "
+          f"chunks, {replays['no_receiver']} rounds without a receiver, "
+          f"against {replays['full_passes']} for whole replays); "
+          f"{rebuilds['calls']} admission rebuilds of "
           f"{rebuilds['lanes']} lanes in {rebuilds['passes']} passes",
           flush=True)
     for rid, (family, spec, _) in enumerate(SERVICE_MIX):
@@ -1152,7 +1169,7 @@ def phase_service(report):
         lanes=cfg["lanes"], slots=cfg["slots"], max_n=cfg["max_n"],
         steps_per_round=cfg["steps"], rounds=svc.rounds, wall_ms=ms,
         requests=len(SERVICE_MIX), nodes=nodes, launches=launches,
-        rebuilds=rebuilds,
+        rebuilds=rebuilds, replays=replays,
         results={rid: [r.optimum, r.admitted_round, r.retired_round]
                  for rid, r in results.items()})
     report["launches"]["stacked_count_stats"] += launches[
@@ -1165,7 +1182,7 @@ def phase_service_steps(report, check_rounds=3):
     held against the plain version on the live inputs, then two rounds
     timed by the service's own spans, and one round under the profiler.  Returns the service (mid-run) and its live
     kernel inputs."""
-    from repro_torch.core import round_graph
+    from repro_torch.core import round_graph, steal
     from repro_torch.core.api import tree_map
     from repro_torch.kernels import bitset_ops, ref
     from repro_torch.obs import spans
@@ -1205,7 +1222,8 @@ def phase_service_steps(report, check_rounds=3):
     # (b) warms it, the second captures and replays, (c) replays.
     check(round_graph.COUNTS["capture_failed"] == failed + check_rounds - 1,
           "service: the checked rounds did not fall back to eager")
-    svc._round = round_graph.GraphedRound(svc._round.fn)
+    svc._round = round_graph.GraphedRound(
+        svc._round.plan, svc._round.chunk, svc._round.chunks)
 
     # (b) Two more rounds of the service, timed by its own spans: the
     # admission and its rebuild, expand, balance, replay, the readback,
@@ -1231,18 +1249,20 @@ def phase_service_steps(report, check_rounds=3):
     # (c) One service round under the profiler, a replay of the graph (its
     # result is dropped): the kernels the card ran held against the
     # launches counted for them.
-    il = svc.lanes.idx.shape[1]
     replays = round_graph.COUNTS["replays"]
     before = bitset_ops.LAUNCHES["stacked_count_stats"]
+    passes = steal.REPLAYS["passes"]
     busy = device_busy(lambda: svc._round(svc.lanes))
     busy.pop("out")
     counted = bitset_ops.LAUNCHES["stacked_count_stats"] - before
+    passes = steal.REPLAYS["passes"] - passes
     ran = busy["kernel_launches"]["stacked_count_stats"]
     check(round_graph.COUNTS["replays"] == replays + 1,
           "service: the profiled round did not replay the graph")
-    check(counted == ran == cfg["steps"] + il,
+    check(counted == ran == cfg["steps"] + passes,
           f"service: a replayed round counted {counted} stacked_count_stats "
-          f"launches and the card ran {ran} (want {cfg['steps']} + {il})")
+          f"launches and the card ran {ran} (want {cfg['steps']} + the "
+          f"{passes} replay passes steal.REPLAYS counted)")
     print(f"phase 7: profiled service round (graph replay): wall "
           f"{busy['wall_ms']:.1f} ms, "
           f"device busy {busy['device_ms']:.2f} ms (share "
@@ -1254,7 +1274,7 @@ def phase_service_steps(report, check_rounds=3):
 
     # The kernel's live inputs at this point, for the timing phase.
     ar = torch.arange(svc.num_lanes, device=DEV)
-    d = svc.lanes.depth.clamp(0, il - 1)
+    d = svc.lanes.depth.clamp(0, svc.lanes.idx.shape[1] - 1)
     states = tree_map(lambda x: x[ar, d], svc.lanes.stack)
     inst, mask, valid = svc.spec.stats_inputs(svc._tables_dev, states)
     live = (svc._tables_dev.adj, inst.contiguous(), mask.contiguous(),
@@ -2785,22 +2805,27 @@ def sync_debug(mode):
 
 
 def audited_rounds(what, round_fn, lanes, rounds):
-    """``rounds`` applications of ``round_fn`` from ``lanes`` with every
-    sync an error, then the same rounds with debug mode off: the lanes
-    must be bitwise equal (SHA-256 of every array).  Returns the digest."""
-    def go(mode):
-        cur = lanes
-        with sync_debug(mode):
-            for _ in range(rounds):
+    """``rounds`` applications of ``round_fn`` from ``lanes``, every sync
+    counted: each round must make ``ROUND_FN_SYNCS``, its readback, and
+    raises otherwise; then the same rounds with debug mode off: the lanes
+    must be bitwise equal (SHA-256 of every array).  Returns the
+    digest."""
+    def go(audit):
+        cur, syncs = lanes, []
+        for _ in range(rounds):
+            if audit:
+                n, (cur, _) = counted_syncs(lambda c=cur: round_fn(c))
+                syncs.append(n)
+            else:
                 cur, _ = round_fn(cur)
-        return lanes_digest(cur)
+        return lanes_digest(cur), syncs
 
-    try:
-        audited = go("error")
-    except RuntimeError as e:
-        raise RuntimeError(f"chip_smoke: {what}: a host sync inside the "
-                           f"round function: {e}") from e
-    plain = go(0)
+    audited, syncs = go(True)
+    if any(n != ROUND_FN_SYNCS for n in syncs):
+        raise RuntimeError(f"chip_smoke: {what}: host syncs in its rounds "
+                           f"{syncs} (want {ROUND_FN_SYNCS} each: the "
+                           f"round's readback)")
+    plain, _ = go(False)
     check(audited == plain, f"{what}: lanes after {rounds} audited rounds "
                             f"differ from the same rounds unaudited")
     return audited
@@ -2873,7 +2898,7 @@ def phase_sync_audit(report, cell60_lanes, mesh60):
 
     def planted(lanes):                     # the check must be able to fail
         lanes, open_work = ss_round(lanes)
-        int(open_work.sum())
+        int(lanes.nodes.sum())
         return lanes, open_work
     try:
         audited_rounds("planted", planted, ss_lanes, 1)
@@ -2883,14 +2908,14 @@ def phase_sync_audit(report, cell60_lanes, mesh60):
     check(caught, "a sync planted in a round function went unnoticed")
     for what, (width, rounds, _) in audited.items():
         print(f"phase 25: {what} round function at {width} lanes, "
-              f"{rounds} round(s) with set_sync_debug_mode(\"error\"): no "
-              f"sync; lanes bitwise those of the same rounds unaudited",
-              flush=True)
+              f"{rounds} round(s) with set_sync_debug_mode(\"warn\"): "
+              f"{ROUND_FN_SYNCS} sync a round, its readback; lanes bitwise "
+              f"those of the same rounds unaudited", flush=True)
     # The host-copy hazard of the lint (``torch.tensor`` in a round, as
     # subset sum's root() once made three a round) on this card.
     copies, _ = counted_syncs(
         lambda: torch.tensor(0, dtype=torch.int32, device=DEV))
-    print(f"phase 25: an int() planted in subset sum's round raises there; "
+    print(f"phase 25: an int() planted in subset sum's round is caught; "
           f"one torch.tensor(0, device=...) is {copies} sync(s)", flush=True)
 
     # A round's syncs: those of a SYNC_ROUNDS-round solve less those of a

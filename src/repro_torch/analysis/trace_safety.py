@@ -2,9 +2,11 @@
 
 A round of the port (expand, steal, replay, the open-work count) is
 eager PyTorch dispatched from one host thread.  The host reads back ONE
-value a round, at its boundary: ``int(open_work.sum())`` in
-``Solver.solve`` and the service's open-work vector (the collector adds
-one stacked ``.cpu()`` when telemetry is on).  Anything inside the round
+vector a round, at the boundary between the round's plan and its replay
+chunks: the open work and the deepest task received, in
+``core.round_graph.read_back``, its one copy marked as the round's
+readback (the collector adds one stacked ``.cpu()`` when telemetry is
+on).  Anything inside the round
 that waits for the card (``.item()``, ``int(tensor)``, a Python ``if`` on
 a tensor, ``torch.nonzero``, a boolean-mask index, a blocking copy)
 stalls the dispatch every step, and makes the round impossible to
@@ -75,7 +77,8 @@ ROUND_LOOP_ROOTS: Tuple[str, ...] = (
     "repro_torch.core.engine:make_expand.expand",
     "repro_torch.core.engine:replay_path",
     "repro_torch.core.steal:balance_device",
-    "repro_torch.core.distributed:make_round.round_fn",
+    "repro_torch.core.distributed:make_round.plan",
+    "repro_torch.core.distributed:make_round.chunk",
     # The single-device round's CUDA graph: warm-up, capture and replay.
     "repro_torch.core.round_graph:GraphedRound.__call__",
     "repro_torch.core.round_graph:eager.counted",

@@ -48,7 +48,8 @@ from repro_torch import roofline
 from repro_torch.core import round_graph, steal
 from repro_torch.core.api import (UNVISITED, BinaryProblem, resolve_device,
                                   tree_leaves, tree_map)
-from repro_torch.core.engine import Lanes, init_lanes, make_expand
+from repro_torch.core.engine import Lanes, idx_len, init_lanes, make_expand
+from repro_torch.obs import spans
 
 
 class SolveStats(NamedTuple):
@@ -397,25 +398,29 @@ def make_round(problem, steps_per_round: int, *,
                mesh: Optional[Mesh] = None, max_ship: int = 16,
                calls: Optional[int] = None) -> Callable:
     """Build the round body.  With no mesh (or a mesh of one shard) it
-    maps ``Lanes`` to ``(lanes, open_work)``; ``open_work`` is int32[K] on
-    the device: per instance, active lanes plus donatable slots (0 means
+    maps ``Lanes`` to ``(lanes, open_work)``; ``open_work`` is int32[K]
+    on the host: per instance, active lanes plus donatable slots (0 means
     drained).  With a mesh of several shards it is
-    :func:`make_distributed_round`, eager.
+    :func:`make_distributed_round`, eager, its open work read back the
+    same way.
 
-    The single-device body is a ``round_graph.GraphedRound``: on a CUDA
-    device its first call runs eager (the warm-up), its second captures
-    the whole round (64 engine steps, the steal, the D+1 replay passes,
-    the open-work count) as one CUDA graph, and every later call copies
-    the lanes into the graph's static inputs, replays it and returns
-    clones of its static outputs.  The kernels and their order are the
-    same, so is the tree; ``_build.LAUNCHES`` gains the captured launches
-    at every replay.  On any other device it is the eager round.  A
-    replayed round records one ``graph`` span in place of its
-    ``expand``, ``balance`` and ``replay`` spans; on the card every round,
-    eager or replayed, records their device spans (``obs/spans.py``),
-    a mesh of several shards none.  ``calls``, the most
-    calls the caller will make where it knows it, keeps a body eager that
-    gets too few to pay for its capture (``round_graph.MIN_CALLS``)."""
+    The single-device body is a ``round_graph.GraphedRound`` of two
+    parts.  The *plan* runs the ``steps_per_round`` engine steps, the
+    steal's matching and installation, and starts the receiving lanes'
+    replay (``steal.replay_begin``); it returns the lanes, the open work
+    and ``need``, the deepest task received, as one int32 vector, and the
+    replay's state.  The host reads that vector back (the round's one
+    wait for the card) and runs ``ceil(need / steal.REPLAY_CHUNK)``
+    *chunks* of CONVERTINDEX passes into the plan's lanes
+    (``steal.replay_chunk``): none on a round where no lane received a
+    task.  The rows the chunks leave alone are the whole replay's
+    (``engine.replay_path`` with ``passes = need``), so the round is the
+    D+1-pass round bitwise.  On a CUDA device the first call runs eager
+    (the warm-up), the second captures the plan and a chunk as CUDA
+    graphs, and every later call replays them; on any other device both
+    run eager.  ``calls``, the most calls the caller will make where it
+    knows it, keeps a body eager that gets too few to pay for its capture
+    (``round_graph.MIN_CALLS``)."""
     if mesh is not None and mesh.size > 1:
         return round_graph.eager(
             make_distributed_round(problem, mesh, steps_per_round, max_ship),
@@ -429,14 +434,29 @@ def make_round(problem, steps_per_round: int, *,
             return ShardedLanes([out]), open_work
 
         return one_shard
+    if steps_per_round < 1:
+        # The replay writes into the stack of the round's last engine step.
+        raise ValueError(f"steps_per_round must be >= 1, got "
+                         f"{steps_per_round}")
     expand = make_expand(problem, steps_per_round)
+    il = idx_len(problem)
 
-    def round_fn(lanes: Lanes) -> Tuple[Lanes, torch.Tensor]:
+    def plan(lanes: Lanes) -> Tuple[Lanes, torch.Tensor, steal.Replay]:
         lanes = expand(lanes)
-        lanes = steal.balance_device(problem, lanes)
-        return lanes, _open_work(lanes)
+        lanes, received = steal.assign_tasks(*steal.balance_plan(lanes))
+        with spans.span("replay", device=True):
+            replay, need = steal.replay_begin(problem, lanes, received)
+        return lanes, torch.cat([_open_work(lanes), need[None]]), replay
 
-    return round_graph.GraphedRound(round_fn, calls=calls)
+    def chunk(lanes: Lanes, replay: steal.Replay) -> None:
+        steal.replay_chunk(problem, lanes, replay)
+
+    def chunks(flags: torch.Tensor) -> Tuple[int, torch.Tensor]:
+        """``plan``'s flags as read back: (the chunks ``need`` asks for,
+        the open work)."""
+        return steal.replay_chunks(int(flags[-1]), il), flags[:-1]
+
+    return round_graph.GraphedRound(plan, chunk, chunks, calls=calls)
 
 
 def make_distributed_round(problem, mesh: Mesh, steps_per_round: int,

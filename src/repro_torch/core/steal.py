@@ -13,16 +13,25 @@ steal nor donate.
 cross-device steal (``repro_torch.core.distributed.cross_device_steal``):
 a shard extracts its per-instance quota of heaviest tasks, and its idle
 lanes claim the shipped rows by global rank.
+
+The single-device round replays in chunks (:func:`replay_begin`,
+:func:`replay_chunk`): the round's plan installs the tasks and reports
+``need``, the deepest task a lane received, and the host then runs
+``ceil(need / REPLAY_CHUNK)`` chunks of passes, none on a round where no
+lane received a task (``core.distributed.make_round``).  The mesh's
+whole replay (:func:`replay_received`) runs the same passes, IDX_LEN of
+them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.api import UNVISITED, BinaryProblem, bcast, tree_map
-from repro_torch.core.engine import Lanes, replay_path
+from repro_torch.core.api import (UNVISITED, BinaryProblem, bcast, root_of,
+                                  tree_map)
+from repro_torch.core.engine import Lanes
 from repro_torch.core.indexing import extract_task, heaviest_open_slot
 from repro_torch.obs import spans
 
@@ -151,8 +160,10 @@ def assign_tasks(lanes: Lanes, bits: torch.Tensor, tdepth: torch.Tensor,
     """FIXINDEX for per-lane task rows (row i goes to lane i; ``valid``
     gates installation and only idle lanes take a row): every field but
     the state stack.  Returns the lanes and the mask of those that took a
-    row, which :func:`replay_received` then rebuilds.  ``cross`` (set by
-    the cross-device steal) also counts each receipt in ``t_c``."""
+    row, which :func:`replay_received` (on one device,
+    :func:`replay_begin` and :func:`replay_chunk`) then rebuilds.
+    ``cross`` (set by the cross-device steal) also counts each receipt in
+    ``t_c``."""
     with spans.span("balance", device=True):
         my_valid = valid & ~lanes.active
         recv = my_valid.to(torch.int32)
@@ -171,17 +182,97 @@ def replay_received(problem: BinaryProblem, lanes: Lanes,
                     received: torch.Tensor) -> Lanes:
     """CONVERTINDEX for the lanes in ``received``: each replays its own
     index from its instance's root and owns the stolen subtree from
-    ``base`` = its depth; the other lanes keep their stacks.  Lane-local,
-    so lanes of several shards on one device replay in one batch."""
+    ``base`` = its depth; the other lanes keep their stacks.  The whole
+    replay, eager: :func:`replay_begin`, then IDX_LEN passes of
+    :func:`replay_chunk` into a copy of the stack.  Lane-local, so lanes
+    of several shards on one device replay in one batch."""
     with spans.span("replay", device=True):
-        bits = torch.where(received[:, None], lanes.idx, UNVISITED).to(
-            torch.int8)
-        depth = torch.where(received, lanes.depth, 0).to(torch.int32)
-        inst = torch.where(received, lanes.inst, 0).to(torch.int32)
-        new_stack = replay_path(problem, bits, depth, lanes.stack, inst)
-        return lanes._replace(stack=tree_map(
-            lambda new, old: torch.where(bcast(received, old), new, old),
-            new_stack, lanes.stack))
+        lanes = lanes._replace(stack=tree_map(torch.clone, lanes.stack))
+        replay, _ = replay_begin(problem, lanes, received)
+        replay_chunk(problem, lanes, replay, passes=lanes.idx.shape[1])
+        return lanes
+
+
+#: CONVERTINDEX passes a replay chunk runs.  The card's reading (an NVIDIA
+#: H100, PERF.md §6) put the deepest received task at 0 in every window
+#: round of both saturated cells (920 and 941 rounds) and at 6-24 in the
+#: service's (17-24 in 1,151 of 1,176 rounds): chunks of 8 run 24 passes
+#: there where chunks of 16 would run 32.
+REPLAY_CHUNK = 8
+
+#: Single-device rounds since the last ``reset_replays()``: the rounds,
+#: those in which no lane received a task (no chunk ran), the chunks
+#: launched, the passes they ran (``REPLAY_CHUNK`` a chunk) and the passes
+#: a whole replay would have run (IDX_LEN a round).
+REPLAYS: Dict[str, int] = dict.fromkeys(
+    ("rounds", "no_receiver", "chunks", "passes", "full_passes"), 0)
+
+
+def reset_replays() -> None:
+    for name in REPLAYS:
+        REPLAYS[name] = 0
+
+
+class Replay(NamedTuple):
+    """What the round's replay chunks read besides the lanes: the lanes
+    that received a task this round and the next pass to run."""
+
+    received: torch.Tensor    # bool  [W]
+    row: torch.Tensor         # int32 []
+
+
+def replay_begin(problem: BinaryProblem, lanes: Lanes,
+                 received: torch.Tensor) -> Tuple[Replay, torch.Tensor]:
+    """Start the CONVERTINDEX of the lanes in ``received``: row 0 of each
+    becomes its instance's root, written in place into ``lanes.stack``,
+    which the caller owns.  Returns the :class:`Replay` that
+    :func:`replay_chunk` continues (pass 0 next) and ``need``, the
+    deepest task received (int32 [], 0 when no lane received one): the
+    passes the replay has to run."""
+    inst = torch.where(received, lanes.inst, 0).to(torch.int32)
+    tree_map(lambda s, r: s[:, 0].copy_(
+        torch.where(bcast(received, r), r, s[:, 0])),
+        lanes.stack, root_of(problem, inst))
+    need = torch.where(received, lanes.depth, 0).amax()
+    row = torch.zeros((), dtype=torch.int32, device=need.device)
+    return Replay(received, row), need.to(torch.int32)
+
+
+def replay_chunk(problem: BinaryProblem, lanes: Lanes, replay: Replay,
+                 passes: int = REPLAY_CHUNK) -> None:
+    """``passes`` CONVERTINDEX passes from pass ``replay.row``, in place:
+    pass j rebuilds row j + 1 of each receiving lane with j < ``depth``
+    from its row j and path bit j; every other row keeps its contents.
+    Advances ``replay.row`` on the device, so that the host launches
+    chunks without writing.  The rows are those of
+    ``engine.replay_path`` with as many passes."""
+    il = lanes.idx.shape[1]
+    js = replay.row + torch.arange(passes, dtype=torch.int32,
+                                   device=replay.row.device)
+    src = js.clamp(max=il - 1).long()        # passes past IDX_LEN take none
+    dst = (js + 1).clamp(max=il).long()
+    for i in range(passes):
+        take = replay.received & (js[i] < lanes.depth)
+        at, to = src[i:i + 1], dst[i:i + 1]
+        bit = lanes.idx.index_select(1, at)[:, 0].to(torch.int32).clamp(0, 1)
+        state = tree_map(lambda s: s.index_select(1, at)[:, 0], lanes.stack)
+        child = problem.apply(state, bit)
+        tree_map(lambda s, c: s.index_copy_(1, to, torch.where(
+            bcast(take, c), c, s.index_select(1, to)[:, 0]).unsqueeze(1)),
+            lanes.stack, child)
+    replay.row.add_(passes)
+
+
+def replay_chunks(need: int, idx_len: int) -> int:
+    """The chunks a round runs for ``need`` passes, counted in
+    :data:`REPLAYS` against the ``idx_len`` passes of a whole replay."""
+    chunks = -(-need // REPLAY_CHUNK)
+    REPLAYS["rounds"] += 1
+    REPLAYS["no_receiver"] += chunks == 0
+    REPLAYS["chunks"] += chunks
+    REPLAYS["passes"] += chunks * REPLAY_CHUNK
+    REPLAYS["full_passes"] += idx_len
+    return chunks
 
 
 def install_tasks(problem: BinaryProblem, lanes: Lanes, bits: torch.Tensor,

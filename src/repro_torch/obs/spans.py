@@ -3,9 +3,10 @@ phase and, on the card, the device's time of a round's phases.
 
 Where :mod:`repro_torch.obs.collect` counts what a round did, a span says
 how long the host spent on each phase of it: one span a phase, never one
-an engine step or a replay pass.  A round that replays its CUDA graph
-(``core.round_graph``) runs none of the phases' host code: it records one
-``graph`` span in place of ``expand``, ``balance`` and ``replay``.
+an engine step or a replay pass.  A round that replays its CUDA graphs
+(``core.round_graph``) runs none of the plan's host code: it records one
+``graph`` span in place of ``expand``, ``balance`` and the plan's
+``replay``, with the ``readback`` and the chunks' ``replay`` inside it.
 
 ================  ===========================================  ===========
 span              where                                        parent
@@ -15,8 +16,12 @@ span              where                                        parent
 ``expand``        ``core.engine.make_expand.expand``           ``round``
 ``balance``       ``core.steal.balance_plan``,                 ``round``
                   ``core.steal.assign_tasks``
-``replay``        ``core.steal.replay_received``               ``round``
-``readback``      the round's one host read of the open work   ``round``
+``replay``        ``make_round``'s plan, around                ``round``,
+                  ``steal.replay_begin``; the replay chunks    ``graph``
+                  (``core.round_graph``); the mesh's
+                  ``steal.replay_received``
+``readback``      ``core.round_graph.read_back``: the round's  ``round``,
+                  one host read of the open work (and need)    ``graph``
 ``event``         ``Solver.solve``'s "round" ProgressEvent     ``round``
                   (only with a listener)
 ``admit``         ``SolverService._admit_and_place``           ``round``
@@ -25,32 +30,37 @@ span              where                                        parent
 ``request``       ``SolverService.submit`` to the request's    --
                   terminal state (carries its ``rid``)
 ``queued``        ``submit`` to the request's admission        ``request``
-``graph``         a replayed round's copy-in, graph launch      ``round``
-                  and clone-out (``core.round_graph``)
+``graph``         a replayed round's copy-in, graph launches,   ``round``
+                  readback and clone-out (``core.round_graph``)
 ================  ===========================================  ===========
 
 On a CUDA round of one device (``core.round_graph.GraphedRound``, eager
 or replayed) the phases ``expand``, ``balance`` (twice) and ``replay``
-also record a *device span*: a ``Span`` of ``clock`` "device", no parent,
-and the run and round of the round that read it.
+(twice: the plan's and the chunks') also record a *device span*: a
+``Span`` of ``clock`` "device", no parent, and the run and round of its
+round.
 
 ================  ===========================================  ===========
 device span       where the events are recorded                clock
 ================  ===========================================  ===========
 ``expand``        around ``make_expand.expand``'s 64 steps     ``device``
 ``balance``       around ``balance_plan`` and ``assign_tasks``  ``device``
-``replay``        around ``replay_received``'s D+1 passes      ``device``
+``replay``        around ``replay_begin`` (in the plan) and     ``device``
+                  around the round's replay chunks (deferred)
 ================  ===========================================  ===========
 
 Two timing CUDA events on the round's stream bound each one, and nothing
 else is enqueued.  While ``GraphedRound`` captures, the events are
 recorded into the graph (``external=True``: event-record nodes), so every
 replay records them again; the wrapper keeps them and hands them back to
-the recorder at each replay.  The host never waits for them: the round's
-own readback (``Solver.solve``'s ``readback``, ``step_round``'s) has
+the recorder at each replay (:func:`pend_device`).  The host never waits
+for them: the round's own readback (``core.round_graph.read_back``) has
 already waited for the card when :func:`read_device` reads their elapsed
-times and files the spans.  Their durations are the card's; their
-positions are placed so that the round's last device span ends when
+times and files the spans.  The round's replay chunks run after that
+readback, so their ``replay`` span is *deferred* (:func:`defer_device`):
+it keeps its round and is filed once its events have completed, by the
+next round's readback at the latest.  Durations are the card's;
+positions are placed so that the last device span filed ends when
 :func:`read_device` runs, on the host's clock (the two clocks share no
 reading).  On the CPU, on a mesh of several shards, and with the
 recorder off, no event is made and no device span is filed.
@@ -153,10 +163,10 @@ class _DevicePhases:
     ``recorded`` holds the ``(name, start, end)`` events of the device
     spans opened inside it."""
 
-    __slots__ = ("rec", "device", "recorded", "outer")
+    __slots__ = ("rec", "device", "recorded", "outer", "defer")
 
-    def __init__(self, rec: "SpanRecorder", device):
-        self.rec, self.device = rec, device
+    def __init__(self, rec: "SpanRecorder", device, defer: bool = False):
+        self.rec, self.device, self.defer = rec, device, defer
         self.recorded: list = []
         self.outer = None
 
@@ -169,7 +179,10 @@ class _DevicePhases:
 
     def __exit__(self, *exc) -> bool:
         self.rec._local.armed = self.outer
-        self.rec.pend_device(self.recorded)
+        if self.defer:
+            self.rec.defer_device(self.recorded)
+        else:
+            self.rec.pend_device(self.recorded)
         return False
 
 
@@ -189,6 +202,8 @@ class SpanRecorder:
         self._round: Dict[int, int] = {}          # run -> its newest round
         self._local = threading.local()
         self._pending: list = []                  # the last round's events
+        self._deferred: list = []                 # (name, start, end, run,
+                                                  # round) filed when done
 
     # -- recording -----------------------------------------------------------
 
@@ -210,13 +225,14 @@ class SpanRecorder:
         the work the block enqueues."""
         return _Opened(self, name, run, round, device)
 
-    def device_phases(self, device) -> _DevicePhases:
+    def device_phases(self, device, defer: bool = False) -> _DevicePhases:
         """Arm device spans for a round body run on ``device`` (a
         ``torch.device``) inside the ``with`` block, and on leaving it
-        make its events the pending ones (:meth:`pend_device`).  Off the
-        card, or with the recorder off, nothing is armed and nothing is
-        left pending."""
-        return _DevicePhases(self, device)
+        make its events the pending ones (:meth:`pend_device`), or with
+        ``defer`` deferred ones (:meth:`defer_device`).  Off the card, or
+        with the recorder off, nothing is armed and nothing is left
+        pending."""
+        return _DevicePhases(self, device, defer)
 
     def _event(self):
         """A timing CUDA event recorded on the armed device's current
@@ -241,33 +257,60 @@ class SpanRecorder:
         recorder off nothing is pending."""
         self._pending = list(recorded) if self.enabled else []
 
+    def defer_device(self, recorded) -> None:
+        """Keep ``recorded`` (``(name, start, end)`` events enqueued after
+        the round's readback) under the run and round of the enclosing
+        span, to be filed by a later :meth:`read_device` once their events
+        have completed.  Fresh events only: a graph's would be recorded
+        again before they are read.  With the recorder off nothing is
+        kept."""
+        if not self.enabled or not recorded:
+            return
+        run, round_no = self._here()
+        self._deferred.extend((name, start, end, run, round_no)
+                              for name, start, end in recorded)
+        del self._deferred[:-self.capacity]
+
     def read_device(self) -> int:
-        """File the pending device spans under the run and round of the
-        enclosing span; call it after the host has waited for the round.
-        Returns how many were filed (none when their events have not all
-        completed: this never waits).  Each elapsed time costs the host
-        some microseconds, so a span takes two reads, one for the first:
-        its start from the first span's and its duration."""
+        """File the deferred device spans whose events have completed,
+        each under its own run and round, and the pending ones under the
+        run and round of the enclosing span; call it after the host has
+        waited for the round.  Returns how many were filed.  It never
+        waits: a deferred span not yet completed stays deferred, and the
+        pending ones are filed only when all of theirs have completed.
+        Each elapsed time costs the host some microseconds, so a span
+        takes two reads, one for the first: its start from the first
+        span's and its duration."""
         pending, self._pending = self._pending, []
-        if not self.enabled or not pending:
+        if not self.enabled:
+            self._deferred = []
             return 0
-        origin = pending[0][1]
-        try:       # raises unless both events have completed; never waits
-            ms = [(name, origin.elapsed_time(start) if start is not origin
-                   else 0.0, start.elapsed_time(end))
-                  for name, start, end in pending]
+        ready, waiting = [], []
+        for entry in self._deferred:
+            (ready if _completed(entry[1], entry[2]) else waiting).append(
+                entry)
+        self._deferred = waiting
+        here = self._here()
+        spans = ready + [(name, start, end) + here
+                         for name, start, end in pending]
+        try:       # raises unless every event has completed; never waits
+            ms = _elapsed(spans)
         except RuntimeError:
-            return 0
-        stack = self._stack()
-        run, round_no = (stack[-1][4], stack[-1][5]) if stack else (0, 0)
+            spans = ready
+            ms = _elapsed(spans)
         now = time.perf_counter_ns()
-        last = max(start + took for _, start, took in ms)
-        for name, start, took in ms:
+        last = max((start + took for start, took in ms), default=0.0)
+        for (name, _, _, run, round_no), (start, took) in zip(spans, ms):
             start_ns = now - round((last - start) * 1e6)
             self._done.append(Span(
                 next(self._ids), name, start_ns, start_ns + round(took * 1e6),
                 None, run, round_no, clock="device"))
         return len(ms)
+
+    def _here(self) -> tuple:
+        """The run and round of the enclosing span, (0, 0) outside one."""
+        stack = self._stack()
+        return (stack[-1][4], stack[-1][5]) if stack else (0, 0)
 
     def _stack(self) -> list:
         try:
@@ -365,6 +408,27 @@ class SpanRecorder:
         return len(spans)
 
 
+def _completed(start, end) -> bool:
+    """Whether both events of a device span have completed (never
+    waits)."""
+    try:
+        start.elapsed_time(end)
+    except RuntimeError:
+        return False
+    return True
+
+
+def _elapsed(spans: list) -> list:
+    """``(start, duration)`` in milliseconds of each ``(name, start, end,
+    ...)`` span, the start from the first span's; raises RuntimeError
+    when an event has not completed."""
+    if not spans:
+        return []
+    origin = spans[0][1]
+    return [(origin.elapsed_time(start) if start is not origin else 0.0,
+             start.elapsed_time(end)) for _, start, end, *_ in spans]
+
+
 def self_ns(spans: Iterable[Span]) -> Dict[int, int]:
     """Each span's self time by id: its duration less the part of it that
     its children cover (their union, so overlapping children count once).
@@ -396,14 +460,19 @@ def span(name: str, *, run: Optional[int] = None,
     return RECORDER.span(name, run=run, round=round, device=device)
 
 
-def device_phases(device) -> _DevicePhases:
+def device_phases(device, defer: bool = False) -> _DevicePhases:
     """:meth:`SpanRecorder.device_phases` of :data:`RECORDER`."""
-    return RECORDER.device_phases(device)
+    return RECORDER.device_phases(device, defer)
 
 
 def pend_device(recorded) -> None:
     """:meth:`SpanRecorder.pend_device` of :data:`RECORDER`."""
     RECORDER.pend_device(recorded)
+
+
+def defer_device(recorded) -> None:
+    """:meth:`SpanRecorder.defer_device` of :data:`RECORDER`."""
+    RECORDER.defer_device(recorded)
 
 
 def read_device() -> int:

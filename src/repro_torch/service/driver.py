@@ -606,11 +606,11 @@ class SolverService:
                 col.before_round(self.lanes, dirty=changed)
             elif track:
                 nodes_before = _host(self.lanes.nodes).copy()
+            # The round reads its open work back, the one per-round
+            # readback (its ``readback`` span).
             self.lanes, open_vec = self._round(self.lanes)
             self.rounds += 1
-            with spans.span("readback"):
-                open_np = _host(open_vec)    # the one per-round readback
-            spans.read_device()
+            open_np = _host(open_vec)
             with spans.span("retire"):
                 inst_delta = None
                 if col is not None:

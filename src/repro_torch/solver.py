@@ -340,10 +340,9 @@ class Solver:
             lanes = feed_pool(lanes)
             if collector is not None:
                 collector.before_round(lanes, dirty=fed)
+            # The round read its open work back (its ``readback`` span).
             lanes, open_work = fn(lanes)
-            with spans.span("readback"):
-                open_now = int(open_work.sum())
-            spans.read_device()
+            open_now = int(open_work.sum())
             if collector is not None:
                 collector.after_round(rounds + 1, lanes, open_now)
             return lanes, open_now
@@ -390,6 +389,7 @@ class Solver:
             lanes=int(lanes.active.shape[0]),
             t_c=int(lanes.t_c.sum()),
         )
+        spans.read_device()     # the last round's replay span, now done
         if collector is not None:
             collector.finish(rounds=rounds, best=lanes.best.tolist())
             collector.close()

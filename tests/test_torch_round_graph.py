@@ -1,11 +1,12 @@
-"""The round's CUDA graph (``repro_torch.core.round_graph``): its
+"""The round's CUDA graphs (``repro_torch.core.round_graph``): their
 bookkeeping on the CPU.
 
 A CUDA graph exists only on the card, so these tests give
 ``GraphedRound`` a stand-in backend: its capture runs the body once to
 learn the outputs and then scribbles over them (a captured graph has run
 nothing), and its replay runs the body again on the static inputs it
-closed over and writes the static outputs in place.  What is held here
+closed over and writes the static outputs in place (a replay chunk,
+which returns nothing, writes its own in place).  What is held here
 is the wrapper's part: the CPU round is the eager round, inputs stay
 untouched, outputs are fresh tensors, launches are counted as eager
 rounds count them, a new shape captures anew and a failed capture falls
@@ -46,7 +47,8 @@ class Emulated:
         self.fn = fn
         self.out = fn()
         for leaf in tree_leaves(self.out):        # nothing has run yet
-            leaf.fill_(True if leaf.dtype == torch.bool else 7)
+            if leaf is not None:
+                leaf.fill_(True if leaf.dtype == torch.bool else 7)
         return self.out
 
     def replay(self):
@@ -58,8 +60,10 @@ class Emulated:
         finally:
             spans.RECORDER.enabled = recording
             _build.LAUNCHES.update(before)
-        for static, leaf in zip(tree_leaves(self.out), tree_leaves(got)):
-            static.copy_(leaf)
+        if got is not None:
+            for static, leaf in zip(tree_leaves(self.out),
+                                    tree_leaves(got)):
+                static.copy_(leaf)
 
 
 class Refused(Emulated):
@@ -74,10 +78,17 @@ class Refused(Emulated):
 def counting(fn, per_call=3):
     """``fn`` that counts ``per_call`` count_stats launches a call, as the
     card's kernels would."""
-    def body(lanes):
+    def body(*args):
         _build.LAUNCHES["count_stats"] += per_call
-        return fn(lanes)
+        return fn(*args)
     return body
+
+
+def graphed_as(body, backend=Emulated, plan=None, **kw):
+    """The round ``body`` (``make_round``'s) run by a ``GraphedRound`` on
+    ``backend``, its plan replaced by ``plan`` when given."""
+    return round_graph.GraphedRound(plan or body.plan, body.chunk,
+                                    body.chunks, backend=backend, **kw)
 
 
 def build(family, spec, lanes=16):
@@ -122,8 +133,8 @@ def test_cpu_round_is_the_eager_round_bitwise(family, spec):
 @pytest.mark.parametrize("family,spec", PROBLEMS)
 def test_replayed_rounds_equal_the_eager_rounds(family, spec):
     problem, lanes = build(family, spec)
-    eager = make_round(problem, 8).fn
-    graphed = round_graph.GraphedRound(eager, backend=Emulated)
+    body = make_round(problem, 8)
+    eager, graphed = body.fn, graphed_as(body)
     a = b = lanes
     for _ in range(6):
         a, open_a = graphed(a)
@@ -135,8 +146,7 @@ def test_replayed_rounds_equal_the_eager_rounds(family, spec):
 
 def test_inputs_are_left_untouched_and_outputs_are_fresh():
     problem, lanes = build("vc", "gnp:30:20:3")
-    graphed = round_graph.GraphedRound(make_round(problem, 8).fn,
-                                       backend=Emulated)
+    graphed = graphed_as(make_round(problem, 8))
     prev_out = None
     for _ in range(4):
         kept = [x.clone() for x in tree_leaves(lanes)]
@@ -156,8 +166,8 @@ def test_inputs_are_left_untouched_and_outputs_are_fresh():
 
 def test_launches_grow_by_the_captured_delta_on_every_replay():
     problem, lanes = build("vc", "gnp:30:20:3")
-    graphed = round_graph.GraphedRound(counting(make_round(problem, 8).fn),
-                                       backend=Emulated)
+    body = make_round(problem, 8)
+    graphed = graphed_as(body, plan=counting(body.plan))
     for _ in range(5):
         before = _build.LAUNCHES["count_stats"]
         lanes, _ = graphed(lanes)
@@ -169,8 +179,8 @@ def test_launches_grow_by_the_captured_delta_on_every_replay():
 def test_a_changed_shape_captures_anew():
     problem, small = build("vc", "gnp:30:20:3", lanes=8)
     big = init_lanes(problem, 16)
-    eager = make_round(problem, 8).fn
-    graphed = round_graph.GraphedRound(eager, backend=Emulated)
+    body = make_round(problem, 8)
+    eager, graphed = body.fn, graphed_as(body)
     for lanes in (small, small, small, big, big, big, small):
         assert_same(graphed(lanes), eager(lanes))
     assert {k: v for k, v in round_graph.COUNTS.items() if v} == {
@@ -179,8 +189,8 @@ def test_a_changed_shape_captures_anew():
 
 def test_a_failed_capture_falls_back_to_eager_and_is_counted():
     problem, lanes = build("vc", "gnp:30:20:3")
-    eager = counting(make_round(problem, 8).fn)
-    graphed = round_graph.GraphedRound(eager, backend=Refused)
+    body = make_round(problem, 8)
+    graphed = graphed_as(body, Refused, plan=counting(body.plan))
     b = lanes
     launches = []
     with pytest.warns(RuntimeWarning, match="runs eager from now on") as w:
@@ -203,8 +213,8 @@ def test_a_failed_capture_falls_back_to_eager_and_is_counted():
 def test_a_body_with_too_few_calls_to_pay_for_a_capture_stays_eager(calls,
                                                                    want):
     problem, lanes = build("vc", "gnp:30:20:3")
-    eager = make_round(problem, 8).fn
-    graphed = round_graph.GraphedRound(eager, backend=Emulated, calls=calls)
+    body = make_round(problem, 8)
+    eager, graphed = body.fn, graphed_as(body, calls=calls)
     a = b = lanes
     for _ in range(calls or 4):
         a, open_a = graphed(a)
@@ -252,8 +262,7 @@ def test_a_mesh_of_several_shards_stays_eager_and_is_counted():
 def test_a_replayed_round_records_one_graph_span():
     spans.enable()
     problem, lanes = build("vc", "gnp:30:20:3")
-    graphed = round_graph.GraphedRound(make_round(problem, 8).fn,
-                                       backend=Emulated)
+    graphed = graphed_as(make_round(problem, 8))
     run = spans.begin_run("solve")
     for r in range(1, 5):
         with spans.span("round", run=run, round=r):
@@ -263,13 +272,20 @@ def test_a_replayed_round_records_one_graph_span():
     names = {r: sorted(s.name for s in got
                        if s.round == r and s.name != "round")
              for r in tops}
-    # Warm-up and capture run the body: its phases; replays: one graph.
-    assert names[1] == ["balance", "balance", "expand", "replay"]
-    assert names[2] == ["balance", "balance", "expand", "graph", "replay"]
-    assert names[3] == names[4] == ["graph"]
+    # Warm-up and capture run the plan: its phases, the plan's replay
+    # among them; every round reads back and runs its replay chunks;
+    # replays: one graph around the readback and the chunks.
+    assert names[1] == ["balance", "balance", "expand", "readback",
+                        "replay", "replay"]
+    assert names[2] == ["balance", "balance", "expand", "graph",
+                        "readback", "replay", "replay"]
+    assert names[3] == names[4] == ["graph", "readback", "replay"]
+    graphs = {s.round: s.id for s in got if s.name == "graph"}
     for s in got:
         if s.name == "graph":
             assert s.parent == tops[s.round]
+        if s.name == "readback" and s.round in graphs:
+            assert s.parent == graphs[s.round]
 
 
 def test_a_solve_on_the_cpu_counts_its_rounds_as_cpu():
