@@ -2263,7 +2263,8 @@ def phase_subset_sum(report):
                                                          inst.target))
     serial_s = time.perf_counter() - t0
     gpu, gpu_ms, _, _ = run_solve("ss", spec, DRAIN_LANES, DEV)
-    launches = sum(bitset_ops.LAUNCHES.values())
+    # Launches only: the registry also counts routes and stack bytes.
+    launches = sum(bitset_ops.LAUNCHES[k] for k in KERNELS)
     cpu, cpu_ms, _, _ = run_solve("ss", spec, DRAIN_LANES, "cpu")
     print(f"phase 18: ss {spec} (n={inst.n}, target={inst.target}) lanes="
           f"{DRAIN_LANES}: cuda {tuple(gpu.stats)} wall={gpu_ms:.1f} ms; "

@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.api import (INF_VALUE, LEFT, RIGHT, UNVISITED,
                                   BinaryProblem, bcast, root_of, tree_leaves,
                                   tree_map, tree_select)
+from repro_torch.kernels import _build
 from repro_torch.obs import spans
 
 PyTree = Any
@@ -117,6 +118,17 @@ def init_lanes(problem: BinaryProblem, num_lanes: int,
     )
 
 
+def _count_push(stack: PyTree) -> None:
+    """Count a step's stack clones in ``_build.LAUNCHES["stack_push_bytes"]``:
+    ``push`` allocates and writes every stack leaf whole, to write one row
+    a lane.  Counted on the host, so a graph replay adds what its capture
+    counted; a dry run's ``meta`` stack counts nothing."""
+    leaves = tree_leaves(stack)
+    if leaves[0].device.type != "meta":
+        _build.LAUNCHES["stack_push_bytes"] += sum(
+            s.numel() * s.element_size() for s in leaves)
+
+
 def make_step(problem: BinaryProblem):
     """Build the one-step transition Lanes -> Lanes: select every lane's
     node off its stack, evaluate all lanes in one batched call, advance
@@ -157,6 +169,7 @@ def make_step(problem: BinaryProblem):
             return out
 
         stack = tree_map(push, lanes.stack, child)
+        _count_push(lanes.stack)
 
         # current_idx maintenance (paper Fig. 3, line 4); a fresh child
         # slot starts UNVISITED.

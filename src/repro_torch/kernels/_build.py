@@ -8,8 +8,12 @@ the CPU-only tests import every module of the port.
 
 Every wrapper launches its kernel through ``launch``, which counts the
 launch in ``LAUNCHES``: a run can show that its path went through the
-kernels.  On ``meta`` tensors (a dry run) a wrapper takes the same route
-and allocates the same outputs, but calls ``abstract`` in place of
+kernels.  A launch of a kernel with two routes counts once more, under
+``<kernel>.<route>``; ``LAUNCHES`` also holds ``stack_push_bytes``, the
+bytes the engine steps' stack clones allocate and write
+(``core/engine.py``).  So only the names in ``KERNELS`` are launches.
+On ``meta`` tensors (a dry run) a wrapper takes the same route and
+allocates the same outputs, but calls ``abstract`` in place of
 ``launch``: nothing runs, nothing is counted in ``LAUNCHES``, and the
 kernel's cost goes to ``roofline.analyze``'s counter.
 """
@@ -23,11 +27,12 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from repro_torch import roofline
+from repro_torch.kernels import autotune
 
 #: The port's CUDA kernels, one ``csrc/<name>.cu`` each.
 KERNELS = ("count_stats", "stacked_count_stats", "popcount_reduce",
@@ -41,8 +46,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _ENTRY: Dict[str, Callable] = {}
 
-#: Launches of each kernel since the last ``reset_launches()``.
-LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+#: The kernels with two routes (``autotune.ROUTES``), the route a
+#: wrapper passes to :func:`launch`.
+ROUTED = ("count_stats", "stacked_count_stats")
+
+#: Launches of each kernel, and of each routed kernel by route
+#: (``count_stats.wide``), since the last ``reset_launches()``; and
+#: ``stack_push_bytes``, which is no launch.
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    KERNELS + tuple(f"{k}.{r}" for k in ROUTED for r in autotune.ROUTES)
+    + ("stack_push_bytes",), 0)
 
 
 def reset_launches() -> None:
@@ -132,11 +145,14 @@ class LaunchError(RuntimeError):
         self.code = code
 
 
-def launch(name: str, argtypes: Sequence, args: Sequence, device) -> None:
+def launch(name: str, argtypes: Sequence, args: Sequence, device,
+           route: Optional[str] = None) -> None:
     """Launch the kernel of ``csrc/<name>.cu`` on the current stream of
     ``device`` (a CUDA device), raise ``LaunchError`` if it returns a CUDA
-    error, and count the launch.  The launcher runs with ``device`` as the
-    current card, so shards of a mesh on other cards launch there."""
+    error, and count the launch, under ``<name>.<route>`` too when the
+    wrapper names the ``route`` it took.  The launcher runs with
+    ``device`` as the current card, so shards of a mesh on other cards
+    launch there."""
     device = torch.device(device)
     stream = torch.cuda.current_stream(device).cuda_stream
     fn = _entry(name, argtypes)
@@ -149,6 +165,8 @@ def launch(name: str, argtypes: Sequence, args: Sequence, device) -> None:
     if err != 0:
         raise LaunchError(name, err)
     LAUNCHES[name] += 1
+    if route is not None:
+        LAUNCHES[f"{name}.{route}"] += 1
 
 
 def abstract(name: str, cost) -> None:

@@ -66,15 +66,15 @@ def _check(table: torch.Tensor, mask: torch.Tensor,
                              f"on {table.device}")
 
 
-def _route(name: str, route, n: int, w: int, lanes: int, k: int) -> int:
-    """The launcher's ``wide`` flag: ``route``, or ``autotune.choose``'s
-    pick when it is None."""
+def _route(name: str, route, n: int, w: int, lanes: int, k: int) -> str:
+    """The route a launch takes: ``route``, or ``autotune.choose``'s pick
+    when it is None (the launcher's ``wide`` flag is ``route == "wide"``)."""
     if route is None:
         route = autotune.choose(n, w, lanes, k).route
     if route not in autotune.routes(w):
         raise ValueError(f"{name}: route {route!r} does not take w={w} "
                          f"(routes: {autotune.routes(w)})")
-    return int(route == "wide")
+    return route
 
 
 def _roofline_cost(rl: autotune.Roofline) -> autotune.KernelCost:
@@ -156,14 +156,15 @@ def count_stats(table: torch.Tensor, mask: torch.Tensor,
         return ref.count_stats_ref(table, mask, valid)
     if table.device.type not in ("cuda", "meta"):
         raise ValueError(f"count_stats has no kernel for {table.device}")
-    wide = _route("count_stats", route, n, w, lanes, 1)
+    route = _route("count_stats", route, n, w, lanes, 1)
     out = torch.empty((lanes, 4), dtype=torch.int32, device=table.device)
     if table.device.type == "meta":
         _build.abstract("count_stats", count_stats_cost(table, mask, valid))
     else:
         _build.launch("count_stats", [_PTR] * 4 + [_INT] * 4,
                       [table.data_ptr(), mask.data_ptr(), valid.data_ptr(),
-                       out.data_ptr(), n, w, lanes, wide], table.device)
+                       out.data_ptr(), n, w, lanes, int(route == "wide")],
+                      table.device, route=route)
     return out
 
 
@@ -212,7 +213,7 @@ def stacked_count_stats(tables: torch.Tensor, inst: torch.Tensor,
     if tables.device.type not in ("cuda", "meta"):
         raise ValueError(f"stacked_count_stats has no kernel for "
                          f"{tables.device}")
-    wide = _route("stacked_count_stats", route, n, w, lanes, k)
+    route = _route("stacked_count_stats", route, n, w, lanes, k)
     out = torch.empty((lanes, 4), dtype=torch.int32, device=tables.device)
     if tables.device.type == "meta":
         _build.abstract("stacked_count_stats", stacked_count_stats_cost(
@@ -221,7 +222,7 @@ def stacked_count_stats(tables: torch.Tensor, inst: torch.Tensor,
         _build.launch("stacked_count_stats", [_PTR] * 5 + [_INT] * 5,
                       [tables.data_ptr(), inst.data_ptr(), mask.data_ptr(),
                        valid.data_ptr(), out.data_ptr(), k, n, w, lanes,
-                       wide], tables.device)
+                       int(route == "wide")], tables.device, route=route)
     return out
 
 

@@ -538,6 +538,58 @@ def test_graphed_round_equals_the_eager_round(family, spec, lanes):
 
 
 @pytest.mark.gpu
+def test_a_wide_graphed_round_equals_the_eager_round():
+    """Vertex cover at 35 words a row (G(1100, 0.5); the vc-c2000 cell
+    runs 63) over 4096 lanes: 16 rounds of ``make_round``'s CUDA graph
+    (warm-up, capture, 14 replays) against the same body run eager, from
+    one root, bitwise and with the same counts each round; no capture
+    fails; every ``count_stats`` launch, the replay chunks' included,
+    takes the wide route, as the profiler sees it on one more replayed
+    round; each round's 64 steps clone the whole stack."""
+    need_card()
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import round_graph
+    from repro_torch.core.distributed import make_round
+    from repro_torch.core.engine import init_lanes
+    problem = registry.problem("vc", "gnp:1100:50:1").build(device="cuda")
+    assert num_words(problem.max_depth) == 35
+    graphed = make_round(problem, 64)
+    round_graph.reset_counts()
+    a = b = init_lanes(problem, 4096)
+    pushed = 64 * sum(s.numel() * s.element_size() for s in a.stack)
+    chunked = 0
+    for _ in range(16):
+        before = dict(_build.LAUNCHES)
+        a, open_a = graphed(a)
+        mid = dict(_build.LAUNCHES)
+        got = _launch_delta(before)
+        b, open_b = graphed.fn(b)
+        assert got == _launch_delta(mid), (got, _launch_delta(mid))
+        assert got["count_stats.wide"] == got["count_stats"] >= 64, got
+        assert got["count_stats.narrow"] == 0, got
+        assert got["stack_push_bytes"] == pushed, (got, pushed)
+        assert_lanes_equal((a, open_a), (b, open_b))
+        chunked += got["count_stats"] > 64
+    assert round_graph.COUNTS == dict(captures=1, replays=15, cpu=0, mesh=0,
+                                      warmup=1, capture_failed=0, short=0)
+    assert chunked, "no round ran a replay chunk"
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a, _ = graphed(a)
+        torch.cuda.synchronize()
+    ran = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and re.search(
+                  r"(?<![A-Za-z_])count_stats_wide_kernel", e.key))
+    got = _launch_delta(before)
+    assert ran == got["count_stats.wide"] == got["count_stats"] >= 64, (
+        ran, got)
+
+
+@pytest.mark.gpu
 def test_graphed_service_equals_the_eager_service():
     """The stacked service with its round graphed against a twin whose
     round runs eager, step for step: admissions write the slot tables in
@@ -594,8 +646,10 @@ def test_a_replayed_round_runs_the_launches_it_counts(family, spec):
     ``_build.LAUNCHES`` without reaching the launcher: the plan's once,
     the chunk's for each replay chunk launched.  The profiler's count of
     the port's kernels on the card in a replayed round equals that
-    addition, on a round that ran replay chunks and on one that ran none;
-    ``count_stats`` ran 64 + the passes ``steal.REPLAYS`` counts."""
+    addition (``_build.KERNELS``: the registry's route and stack-byte
+    names are no further launches), on a round that ran replay chunks and
+    on one that ran none; ``count_stats`` ran 64 + the passes
+    ``steal.REPLAYS`` counts, all on the narrow route."""
     need_card()
     import re
     from collections import Counter
@@ -624,14 +678,16 @@ def test_a_replayed_round_runs_the_launches_it_counts(family, spec):
         assert round_graph.COUNTS["replays"] == replays + 1
         ran = Counter()
         for evt in prof.key_averages():
-            for name in _build.LAUNCHES:    # count_stats is not stacked_...
+            for name in _build.KERNELS:     # count_stats is not stacked_...
                 if evt.device_type == DeviceType.CUDA and re.search(
                         r"(?<![A-Za-z_])" + name + r"(_wide)?_kernel",
                         evt.key):
                     ran[name] += evt.count
-        counted = {k: n for k, n in _launch_delta(before).items() if n}
+        delta = _launch_delta(before)
+        counted = {k: delta[k] for k in _build.KERNELS if delta[k]}
         assert counted["count_stats"] == 64 + steal.REPLAYS["passes"] \
             - passes
+        assert delta["count_stats.narrow"] == counted["count_stats"]
         assert dict(ran) == counted, (steal.REPLAYS["chunks"] - chunks)
         seen.add(steal.REPLAYS["chunks"] > chunks)
         if seen == {True, False}:

@@ -168,11 +168,15 @@ def test_launches_grow_by_the_captured_delta_on_every_replay():
     problem, lanes = build("vc", "gnp:30:20:3")
     body = make_round(problem, 8)
     graphed = graphed_as(body, plan=counting(body.plan))
+    # The plan's 8 engine steps each clone every stack leaf.
+    pushed = 8 * sum(s.numel() * s.element_size() for s in lanes.stack)
     for _ in range(5):
-        before = _build.LAUNCHES["count_stats"]
+        before = dict(_build.LAUNCHES)
         lanes, _ = graphed(lanes)
-        assert _build.LAUNCHES["count_stats"] == before + 3
-    assert graphed._launches == {"count_stats": 3}
+        assert _build.LAUNCHES["count_stats"] == before["count_stats"] + 3
+        assert _build.LAUNCHES["stack_push_bytes"] == \
+            before["stack_push_bytes"] + pushed
+    assert graphed._launches == {"count_stats": 3, "stack_push_bytes": pushed}
     assert round_graph.COUNTS["replays"] == 4
 
 
